@@ -1,0 +1,27 @@
+"""fast_artistic_videos_tpu_torch — the PyTorch/CUDA port of
+``fast_artistic_videos_tpu``.
+
+The JAX package stays the reference; this package mirrors its module paths
+(``models/stylizer.py`` here is the counterpart of
+``fast_artistic_videos_tpu/models/stylizer.py``) and keeps its public array
+conventions so the two can be compared like for like:
+
+  * frames are (H, W, 3) RGB in [0, 1] (float32) or uint8;
+  * flow is (H, W, 2) with channel 0 = dx and channel 1 = dy;
+  * stylizer activations at the ``apply`` boundary are NHWC.
+
+Inside, convolutions run on NCHW views (channels-last memory, so an NHWC
+tensor permuted to NCHW costs no copy) and parameters are OIHW tensors.
+
+Every Pallas kernel on the streaming 2D path has a hand-written CUDA kernel
+for Hopper under ``csrc/`` (built at first use by ``ops/_build.py``). Each
+kernel wrapper runs its plain PyTorch version for a CPU tensor and launches
+the kernel, or raises, for a CUDA tensor — there is no fallback.
+
+The package imports ``torch`` and numpy and never ``jax``; it reuses the
+JAX package's jax-free modules (``core.io``, ``core.config``,
+``models.arch_dsl``, ``utils.pipeline``) and reads its weights from
+``fast_artistic_videos_tpu/assets/``.
+"""
+
+__version__ = "0.1.0"

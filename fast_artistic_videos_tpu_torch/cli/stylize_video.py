@@ -1,0 +1,118 @@
+"""CLI: stylize a frame sequence into a temporally consistent stylized
+sequence with the PyTorch port — counterpart of
+``fast_artistic_videos_tpu/cli/stylize_video.py``, with the same flags
+(``StylizeOptions``) plus ``--device`` (default ``cuda``; there is no silent
+fallback to the CPU).
+
+Zero-download example (bundled demo model and flow estimator):
+
+  python -m fast_artistic_videos_tpu_torch.cli.stylize_video \\
+      --input_pattern frames/frame_%05d.ppm --model_vid demo \\
+      --flow_model bundled --flow_scale 0.5 --output_prefix out/o
+
+float32 runs with TF32 off for cuDNN and matmuls, so the port's float32
+numbers are float32.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from fast_artistic_videos_tpu.core.config import StylizeOptions
+
+from ..models import checkpoint, stylizer
+from ..video.driver_video import VideoDriver, check_supported
+from ..video.engine import EngineConfig, StylizerEngine
+
+
+def add_stylize_flags(p: argparse.ArgumentParser) -> None:
+    defaults = StylizeOptions()
+    for f in dataclasses.fields(StylizeOptions):
+        default = getattr(defaults, f.name)
+        if isinstance(default, bool):
+            p.add_argument("--" + f.name, action="store_true", default=default)
+        else:
+            p.add_argument("--" + f.name, type=type(default), default=default)
+
+
+def options_from_args(args) -> StylizeOptions:
+    return StylizeOptions(**{f.name: getattr(args, f.name)
+                             for f in dataclasses.fields(StylizeOptions)})
+
+
+def resolve_device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available "
+                           "(pass --device cpu to run the plain versions)")
+    if dev.type == "cuda":
+        # float32 means float32: cuDNN convs default to TF32 otherwise
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def build_engine(opt: StylizeOptions, device) -> StylizerEngine:
+    spec_v, params_v, _ = checkpoint.load_model(opt.model_vid, device)
+    apply_vid = lambda p, x: stylizer.apply(p, spec_v, x)  # noqa: E731
+    apply_img = params_img = None
+    stride = spec_v.total_stride
+    if opt.model_img not in ("", "self"):
+        spec_i, params_img, _ = checkpoint.load_model(opt.model_img, device)
+        apply_img = lambda p, x: stylizer.apply(p, spec_i, x)  # noqa: E731
+        stride = max(stride, spec_i.total_stride)
+    cfg = EngineConfig(fill_occlusions=opt.fill_occlusions,
+                       occlusions_min_filter=opt.occlusions_min_filter,
+                       dtype=opt.dtype, exact_warp=opt.exact_warp)
+    return StylizerEngine(apply_vid, params_v, apply_img, params_img,
+                          stride_multiple=stride, config=cfg, device=device)
+
+
+def build_flow_provider(opt: StylizeOptions, device):
+    from ..flow import estimator as flow_estimator
+    from ..flow.provider import StreamingFlowProvider
+
+    if opt.flow_device >= 0 and device.type == "cuda":
+        device = torch.device("cuda", opt.flow_device)
+    # flow_scale < 1: the provider erodes the certainty at flow resolution
+    # (exact), and the engine skips its full-resolution min-filter
+    erode_window = opt.occlusions_min_filter if 0 < opt.flow_scale < 1.0 else None
+    return StreamingFlowProvider(
+        flow_estimator.load_params(opt.flow_model, device), device=device,
+        flow_scale=opt.flow_scale,
+        dtype=torch.bfloat16 if opt.dtype == "bfloat16" else None,
+        coarse_backward=opt.coarse_backward, fast_check=opt.fast_check,
+        erode_window=erode_window)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_stylize_flags(p)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default), cuda:N or cpu")
+    args = p.parse_args(argv)
+    opt = options_from_args(args)
+    if not opt.input_pattern:
+        p.error("--input_pattern is required")
+    if (not opt.create_inconsistent and not opt.flow_model
+            and (not opt.flow_pattern or not opt.occlusions_pattern)):
+        p.error("--flow_pattern and --occlusions_pattern are required "
+                "(or pass --flow_model for streaming flow, or --create_inconsistent)")
+    check_supported(opt)
+    device = resolve_device(args.device)
+    engine = build_engine(opt, device)
+    flow_provider = build_flow_provider(opt, device) if opt.flow_model else None
+    results = VideoDriver(engine, opt, flow_provider=flow_provider).run()
+    if results:
+        total = sum(r.seconds for r in results)
+        print(f"{len(results)} frames in {total:.2f}s "
+              f"({len(results) / max(total, 1e-9):.2f} fps, host clock)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

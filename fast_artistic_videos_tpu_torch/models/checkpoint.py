@@ -1,0 +1,82 @@
+"""Model checkpoint loading — counterpart of
+``fast_artistic_videos_tpu/models/checkpoint.py``.
+
+The checkpoint format is the JAX package's: one ``.npz`` with flattened
+``layer/leaf`` parameters plus an ``__meta__`` JSON blob. Parameters stay
+numpy until :func:`params_from_numpy` converts them to torch tensors, with
+conv kernels moved from HWIO (JAX) to OIHW (PyTorch) once, at load time.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from fast_artistic_videos_tpu.models.arch_dsl import LayerSpec, ModelSpec, parse_arch
+
+ASSETS = os.path.join(os.path.dirname(__file__), "..", "..",
+                      "fast_artistic_videos_tpu", "assets")
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(v)
+    return tree
+
+
+def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX parameter tree (nested dicts of numpy arrays, or anything
+    ``np.asarray`` accepts) -> the same tree of float32 torch tensors on
+    `device`, with every 4-D conv kernel converted HWIO -> OIHW."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = params_from_numpy(v, device)
+            continue
+        a = np.asarray(v, np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        out[k] = torch.from_numpy(np.array(a)).to(device)
+    return out
+
+
+def load_model(path: str, device=None) -> Tuple[ModelSpec, Dict[str, Any], Dict[str, Any]]:
+    """Returns (spec, params, meta) with params as OIHW torch tensors on
+    `device`. The literal string ``demo`` resolves to the bundled demo
+    checkpoint (``fast_artistic_videos_tpu/assets/demo-candy-video.npz``)."""
+    if path == "demo":
+        path = os.path.join(ASSETS, "demo-candy-video.npz")
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(flat.pop("__meta__")).decode())
+    params = params_from_numpy(_unflatten(flat), device)
+    if "layers" in meta:
+        # explicit layer list (t7-imported models have no arch string)
+        layers = tuple(LayerSpec(**l) for l in meta["layers"])
+        spec = ModelSpec(
+            layers=layers,
+            in_channels=int(meta.get("in_channels", 7)),
+            padding_type=meta.get("padding_type", "reflect-start"),
+            use_instance_norm=bool(meta.get("use_instance_norm", True)),
+            tanh_constant=float(meta.get("tanh_constant", 150.0)),
+            input_pad=int(meta.get("input_pad", 0)),
+            total_stride=int(meta.get("total_stride", 1)),
+        )
+    else:
+        spec = parse_arch(
+            meta["arch"],
+            in_channels=int(meta.get("in_channels", 7)),
+            padding_type=meta.get("padding_type", "reflect-start"),
+            use_instance_norm=bool(meta.get("use_instance_norm", True)),
+            tanh_constant=float(meta.get("tanh_constant", 150.0)),
+        )
+    return spec, params, meta

@@ -1,0 +1,315 @@
+"""The feed-forward stylizer network, inference ``apply`` — counterpart of
+``fast_artistic_videos_tpu/models/stylizer.py``.
+
+Activations are NHWC at the ``apply`` boundary (as in the JAX package);
+each conv runs on an NCHW view of them (channels-last memory, no copy).
+Parameters are the nested dict of :func:`models.checkpoint.params_from_numpy`
+(conv kernels OIHW, transposed-conv kernels stored pre-flipped like the
+JAX package's HWIO ones).
+
+Two execution paths with the same math:
+
+  * plain: PyTorch ops, layer by layer (instance norm with float32
+    ``E[x^2] - E[x]^2`` statistics, biased variance, eps 1e-5);
+  * kernels (``fused``): layers 0-2 through the front conv kernel
+    (``ops.front_kernel``, K3) and the residual chain through the chain
+    conv kernel (``ops.rblock_kernel``, K2), each conv's instance norm +
+    ReLU fused into the next launch's prologue — the counterpart of the
+    JAX package's ``fused_front="full"`` + ``fused_rblocks`` path. It is the
+    default for CUDA tensors wherever the architecture allows it.
+
+The JAX package's TPU-layout rewrites (phase-domain front, space-to-depth
+convs, folded upsample convs, phase io) are exact re-expressions of the
+same convs for the TPU's matrix unit and are not part of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from fast_artistic_videos_tpu.models.arch_dsl import LayerSpec, ModelSpec
+
+from ..ops import front_kernel, rblock_kernel
+from ..ops._conv_in import eff_affine
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# primitive layers (NHWC in, NHWC out)
+# ---------------------------------------------------------------------------
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _pad2d(x, pad: int, mode: str):
+    if pad == 0:
+        return x
+    mode = "reflect" if mode == "reflect" else "replicate"
+    return _nhwc(F.pad(_nchw(x), (pad, pad, pad, pad), mode=mode))
+
+
+def conv2d(x, w, b, stride: int = 1, pad: int = 0):
+    """Zero-padded conv in x's dtype; w OIHW."""
+    y = F.conv2d(_nchw(x), w.to(x.dtype), None, stride, pad)
+    return _nhwc(y) + b.to(x.dtype)
+
+
+def conv_transpose2d(x, w, b, stride: int, pad: int, out_adjust: int):
+    """Torch SpatialFullConvolution semantics: out = (in-1)*s - 2p + k + a.
+
+    The stored kernel (OIHW here, HWIO in the JAX package) is pre-flipped:
+    the JAX package lowers it as a stride-dilated correlation. The same
+    result is F.conv_transpose2d with the kernel flipped back and its
+    in/out axes swapped."""
+    wt = w.to(x.dtype).flip(2, 3).transpose(0, 1)
+    y = F.conv_transpose2d(_nchw(x), wt, None, stride, pad, out_adjust)
+    return _nhwc(y) + b.to(x.dtype)
+
+
+def _affine(x, es, eb):
+    """x * es + eb per channel, in float32, rounded back to x's dtype."""
+    return (x.float() * es + eb).to(x.dtype)
+
+
+def instance_norm(x, scale, bias, eps: float = 1e-5):
+    """Instance norm with learned affine; float32 statistics, biased
+    variance (E[x^2] - E[x]^2, clamped at 0)."""
+    xf = x.float()
+    mean = xf.mean(dim=(1, 2), keepdim=True)
+    mean_sq = (xf * xf).mean(dim=(1, 2), keepdim=True)
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
+    es = torch.rsqrt(var + eps) * scale.float()
+    eb = bias.float() - mean * es
+    return _affine(x, es, eb)
+
+
+def upsample_nearest(x, scale: int):
+    return x.repeat_interleave(scale, dim=1).repeat_interleave(scale, dim=2)
+
+
+def shave(x, s: int):
+    return x[:, s:-s, s:-s, :]
+
+
+def _norm_apply(x, p, use_instance_norm: bool):
+    if use_instance_norm:
+        return instance_norm(x, p["scale"], p["bias"])
+    # batch norm: stored running statistics when the checkpoint has them,
+    # batch statistics otherwise
+    if "running_mean" in p:
+        mean = p["running_mean"].float()
+        var = p["running_var"].float()
+    else:
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = xf.var(dim=(0, 1, 2), unbiased=False)
+    es = torch.rsqrt(var + 1e-5) * p["scale"].float()
+    eb = p["bias"].float() - mean * es
+    return _affine(x, es, eb)
+
+
+def _block_apply(x, p, layer: LayerSpec, use_in: bool, residual: bool):
+    pt = layer.block_padding
+    inner_pad = 1 if pt == "zero" else 0
+    h = x
+    if pt in ("reflect", "replicate"):
+        h = _pad2d(h, 1, pt)
+    h = conv2d(h, p["conv1"]["w"], p["conv1"]["b"], 1, inner_pad)
+    h = torch.relu(_norm_apply(h, p["norm1"], use_in))
+    if pt in ("reflect", "replicate"):
+        h = _pad2d(h, 1, pt)
+    h = conv2d(h, p["conv2"]["w"], p["conv2"]["b"], 1, inner_pad)
+    h = _norm_apply(h, p["norm2"], use_in)
+    if not residual:
+        return h
+    skip = shave(x, 2) if pt in ("none", "reflect-start") else x
+    return h + skip
+
+
+# ---------------------------------------------------------------------------
+# the kernel path: front (K3) and residual chain (K2)
+# ---------------------------------------------------------------------------
+
+def _front_eligible(spec: ModelSpec, x, stop_after) -> bool:
+    """The JAX package's conditions for its full-kernel front
+    (``apply(fused_front="full")``): layers 0-2 are [conv s1 SAME -> IN ->
+    ReLU -> 3x3 s2 pad-1 conv -> IN -> ReLU -> 3x3 s2 pad-1 conv], batch 1,
+    padded H, W divisible by 4."""
+    ls = spec.layers
+    if not spec.use_instance_norm or len(ls) < 3 or x.shape[0] != 1:
+        return False
+    l0, l1, l2 = ls[0], ls[1], ls[2]
+    return (l0.kind == "conv" and l0.stride == 1 and l0.pad_mode is None
+            and l0.pad == (l0.ksize - 1) // 2 and l0.norm_after and l0.relu_after
+            and l1.kind == "conv" and l1.stride == 2 and l1.ksize == 3
+            and l1.pad == 1 and l1.pad_mode is None
+            and l1.norm_after and l1.relu_after
+            and l2.kind == "conv" and l2.stride == 2 and l2.ksize == 3
+            and l2.pad == 1 and l2.pad_mode is None
+            and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0
+            and (stop_after is None or stop_after >= 3))
+
+
+def front_layers(x, p0, layer0: LayerSpec, norm0, p1, norm1, p2):
+    """Layers 0-2 through kernel K3, three launches on the logical grid.
+    Layer 0's and layer 1's instance norm + ReLU are fused into the next
+    launch's prologue from the previous launch's statistics.
+
+    x: (1, H, W, C) (already input-padded). Returns (z, stats, count): z
+    (1, H/4, W/4, C2) is layer 2's conv output BEFORE its norm/ReLU, stats
+    its float32 [sum; sum of squares] per channel over count pixels — the
+    caller fuses layer 2's norm into the residual chain's first launch."""
+    h0 = x[0].contiguous()
+    y1, st1 = front_kernel.same_conv(h0, p0["w"], p0["b"], 1, layer0.pad)
+    eff1 = eff_affine(st1, norm0["scale"], norm0["bias"], y1.shape[0] * y1.shape[1])
+    y2, st2 = front_kernel.same_conv(y1, p1["w"], p1["b"], 2, 1, eff=eff1, relu=True)
+    eff2 = eff_affine(st2, norm1["scale"], norm1["bias"], y2.shape[0] * y2.shape[1])
+    z, st3 = front_kernel.same_conv(y2, p2["w"], p2["b"], 2, 1, eff=eff2, relu=True)
+    return z[None], st3, z.shape[0] * z.shape[1]
+
+
+def _fused_chain_idxs(spec: ModelSpec, x):
+    """Indices of the first maximal run of VALID residual blocks (the JAX
+    package's ``_fused_chain_idxs`` with ``fused_rblocks=True``)."""
+    if not spec.use_instance_norm or x.shape[0] != 1:
+        return ()
+    run = []
+    for i, layer in enumerate(spec.layers):
+        ok = (layer.kind == "res_block"
+              and layer.block_padding in ("none", "reflect-start")
+              and not layer.norm_after and not layer.relu_after)
+        if ok:
+            run.append(i)
+        elif run:
+            break
+    return tuple(run)
+
+
+def fused_res_chain(params, x, idxs, pre_eff=None, pre_relu: bool = False):
+    """A run of VALID residual blocks through kernel K2, two launches per
+    block: conv1 (prologue: the previous block's norm2 affine + the
+    residual add, emitting this block's input for the next skip) and conv2
+    (prologue: norm1 affine + ReLU). Only the last block's output affine and
+    skip run outside the kernel.
+
+    x: (1, H, W, C) -> (1, H - 4k, W - 4k, C) for k blocks. pre_eff /
+    pre_relu: the producer's pending instance-norm affine and ReLU (the
+    front kernel hands over layer 2's raw output and statistics), fused into
+    the first launch, whose prologue result becomes block 1's skip."""
+    a = x[0].contiguous()
+    y2 = eff2 = None
+    for n, i in enumerate(idxs):
+        p = params[f"layer{i:02d}"]
+        w1, b1 = p["conv1"]["w"], p["conv1"]["b"]
+        if n == 0:
+            if pre_eff is not None or pre_relu:
+                y1, st1, a = rblock_kernel.chain_conv(
+                    a, w1, b1, eff=pre_eff, pre_relu=pre_relu, emit_input=True)
+            else:
+                y1, st1 = rblock_kernel.chain_conv(a, w1, b1)
+        else:
+            y1, st1, a = rblock_kernel.chain_conv(
+                y2, w1, b1, eff=eff2, skip=a, emit_input=True)
+        eff1 = eff_affine(st1, p["norm1"]["scale"], p["norm1"]["bias"],
+                          y1.shape[0] * y1.shape[1])
+        y2, st2 = rblock_kernel.chain_conv(
+            y1, p["conv2"]["w"], p["conv2"]["b"], eff=eff1, pre_relu=True)
+        eff2 = eff_affine(st2, p["norm2"]["scale"], p["norm2"]["bias"],
+                          y2.shape[0] * y2.shape[1])
+    hv, wv = y2.shape[0], y2.shape[1]
+    out = _affine(y2, eff2[0], eff2[1]) + a[2:2 + hv, 2:2 + wv]
+    return out[None]
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def apply(params: Params, spec: ModelSpec, x, *, dtype=None, stop_after=None,
+          start_at: int = 0, fused=None):
+    """Run the stylizer. x: (N, H, W, in_channels) NHWC in preprocessed (VGG)
+    space; returns (N, H, W, 3) in VGG space (pre-deprocess), in the
+    compute dtype.
+
+    start_at=i resumes the net at layer i with x the activation after layer
+    i-1 (input pad and the kernel front are skipped); stop_after=i returns
+    the activation after layer i.
+
+    fused: route layers 0-2 and the residual chain through kernels K3 and
+    K2 where the architecture allows it. None = on for CUDA tensors, off
+    for CPU tensors; True on a CPU tensor runs the kernels' plain versions
+    (the CPU tests use that to check the fused wiring)."""
+    if dtype is not None:
+        x = x.to(dtype)
+    if fused is None:
+        fused = x.is_cuda
+    use_in = spec.use_instance_norm
+    start = start_at
+    pre_eff, pre_relu = None, False
+    chain = ()
+    if spec.input_pad and not start_at:
+        x = _pad2d(x, spec.input_pad, "reflect")
+    if fused and not start_at and _front_eligible(spec, x, stop_after):
+        x, st3, cnt = front_layers(
+            x, params["layer00"], spec.layers[0], params["layer00_norm"],
+            params["layer01"], params["layer01_norm"], params["layer02"])
+        if spec.layers[2].norm_after:
+            n2 = params["layer02_norm"]
+            pre_eff = eff_affine(st3, n2["scale"], n2["bias"], cnt)
+        pre_relu = spec.layers[2].relu_after
+        start = 3
+    if stop_after is not None and stop_after < start:
+        return x
+    if fused:
+        chain = _fused_chain_idxs(spec, x)
+        if stop_after is not None and chain and chain[-1] > stop_after:
+            chain = ()
+        if chain and not (x.shape[1] > 4 * len(chain) + 2
+                          and x.shape[2] > 4 * len(chain) + 2):
+            chain = ()  # shrinks 4 px per block: too small for the chain
+    if (pre_eff is not None or pre_relu) and not (chain and chain[0] == start):
+        # layer 2's pending norm/ReLU could not fuse into the chain
+        if pre_eff is not None:
+            x = _affine(x, pre_eff[0], pre_eff[1])
+        if pre_relu:
+            x = torch.relu(x)
+        pre_eff, pre_relu = None, False
+    for i, layer in enumerate(spec.layers):
+        if i < start:
+            continue
+        if stop_after is not None and i > stop_after:
+            return x
+        if chain and i in chain:
+            if i == chain[0]:
+                x = fused_res_chain(params, x, chain, pre_eff=pre_eff,
+                                    pre_relu=pre_relu)
+            continue
+        name = f"layer{i:02d}"
+        p = params.get(name)
+        if layer.kind == "conv":
+            if layer.pad_mode:
+                x = _pad2d(x, (layer.ksize - 1) // 2, layer.pad_mode)
+            x = conv2d(x, p["w"], p["b"], layer.stride, layer.pad)
+        elif layer.kind == "full_conv":
+            x = conv_transpose2d(x, p["w"], p["b"], layer.stride, layer.pad,
+                                 layer.out_adjust)
+        elif layer.kind == "upsample":
+            x = upsample_nearest(x, layer.scale)
+        elif layer.kind == "conv_block":
+            x = _block_apply(x, p, layer, use_in, residual=False)
+        elif layer.kind == "res_block":
+            x = _block_apply(x, p, layer, use_in, residual=True)
+        if layer.norm_after:
+            x = _norm_apply(x, params[name + "_norm"], use_in)
+        if layer.relu_after:
+            x = torch.relu(x)
+    return torch.tanh(x) * spec.tanh_constant

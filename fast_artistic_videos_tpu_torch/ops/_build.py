@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources compile with ``nvcc`` for Hopper (``sm_90a``) into ONE shared
+library with a plain C interface, loaded through ``ctypes`` — no PyTorch
+headers, so a build takes seconds. The build runs at first use (never at
+import) into ``fast_artistic_videos_tpu_torch/_build/``; the library's file
+name carries a hash of the sources, so an edited source rebuilds and a stale
+library is never loaded. Pointers and the stream go to C as ``c_void_p``;
+:meth:`Kernel.call` makes the tensors' device current for the launch and
+appends that device's current stream; every C entry returns
+``cudaGetLastError()`` and :meth:`Kernel.call` raises when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of every entry point (argtypes, the stream last); all return
+# int (cudaError_t)
+SIGNATURES = {
+    "fav_warp_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fav_conv_in": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
+}
+
+
+class Library:
+    """The compiled kernels, built once per process on first use."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._lib = None
+        self.build_seconds = None
+        self.build_log = ""
+
+    def sources(self):
+        return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+    def digest(self) -> str:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in self.sources():
+            h.update(os.path.basename(path).encode())
+            with open(path, "rb") as f:
+                h.update(f.read())
+        return h.hexdigest()[:16]
+
+    def path(self) -> str:
+        return os.path.join(BUILD_DIR, f"libfav_kernels_{self.digest()}.so")
+
+    def get(self, verbose: bool = False):
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._load(verbose)
+            return self._lib
+
+    def _load(self, verbose: bool):
+        out = self.path()
+        if not os.path.exists(out):
+            self._compile(out, verbose)
+        lib = ctypes.CDLL(out)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        return lib
+
+    def _compile(self, out: str, verbose: bool):
+        nvcc = _find_nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
+        cmd += ["-o", tmp, *self.sources()]
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        self.build_seconds = time.monotonic() - t0
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{self.build_log}")
+        os.replace(tmp, out)  # atomic: a concurrent build never leaves a torn file
+
+
+def _find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit "
+                       "(set CUDA_HOME)")
+
+
+LIBRARY = Library()
+
+
+class Kernel:
+    """One kernel's launch counter plus the error check of its C entry.
+
+    ``launches`` rises by one each time the wrapper launches the kernel and
+    at no other time; callers may reset it to 0."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+        self._count_lock = threading.Lock()  # the flow thread launches too
+
+    def call(self, entry: str, device: torch.device, *args):
+        """Launch C entry `entry` on `device`, which is made current for the
+        call (a tensor on cuda:N launches on card N, from any thread), on
+        that device's current stream, appended to `args`."""
+        fn = getattr(LIBRARY.get(), entry)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {self.name} ({entry}) failed: "
+                               f"cudaError {err}")
+        with self._count_lock:
+            self.launches += 1
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)

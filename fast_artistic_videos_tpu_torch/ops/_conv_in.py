@@ -1,0 +1,100 @@
+"""The instance-norm conv shared by kernels K2 (``rblock_kernel``) and K3
+(``front_kernel``): wrapper of ``csrc/conv_in.cu`` and its plain version.
+
+    a = [+ skip[+2, +2]] ( [relu] ( eff[0] * x + eff[1] ) )   (prologue)
+    y = conv(zero_pad(a), w, stride, pad) + b                  (f32 accumulate)
+    stats = [sum; sum of squares] of y as stored, per output channel
+
+x is (H, W, Cin) NHWC in float32 or bfloat16; weights are OIHW (the port's
+parameter layout) and are cast to x's dtype, as the Pallas kernels do.
+Values are rounded to the storage dtype after the affine, after the skip
+add and at the store; the statistics are float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ._build import Kernel, ptr
+
+
+def _prologue(x, eff, relu: bool, skip):
+    dtype = x.dtype
+    h, w = x.shape[0], x.shape[1]
+    if eff is not None:
+        x = (x.float() * eff[0].float() + eff[1].float()).to(dtype)
+    if relu:
+        x = torch.relu(x)
+    if skip is not None:
+        x = (x.float() + skip[2:2 + h, 2:2 + w].float()).to(dtype)
+    return x
+
+
+def conv_in_plain(x, w, b, *, stride: int, pad: int, eff=None, relu: bool = False,
+                  skip=None, emit_input: bool = False):
+    """Plain PyTorch version: F.conv2d in x's dtype with the bias inside
+    the conv (one rounding to the storage dtype, as in the kernels), and
+    float32 statistics of the stored values."""
+    dtype = x.dtype
+    a = _prologue(x, eff, relu, skip)
+    y = F.conv2d(a.permute(2, 0, 1)[None], w.to(dtype), b.to(dtype), stride, pad)
+    y = y[0].permute(1, 2, 0)
+    yf = y.float()
+    stats = torch.stack([yf.sum(dim=(0, 1)), (yf * yf).sum(dim=(0, 1))])
+    return (y.contiguous(), stats, a) if emit_input else (y.contiguous(), stats)
+
+
+def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
+            relu: bool = False, skip=None, emit_input: bool = False):
+    """Launch `kernel` (K2 or K3) on a CUDA tensor; plain version on CPU.
+    Returns (y, stats) or (y, stats, a) with emit_input."""
+    if x.device.type == "cpu":
+        return conv_in_plain(x, w, b, stride=stride, pad=pad, eff=eff, relu=relu,
+                             skip=skip, emit_input=emit_input)
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel.name}: unsupported device {x.device}")
+    dtype = x.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel.name}: unsupported dtype {dtype}")
+    if x.ndim != 3 or w.ndim != 4 or not x.is_contiguous():
+        raise ValueError(f"{kernel.name}: x must be contiguous (H, W, C), "
+                         f"w OIHW; got {tuple(x.shape)}, {tuple(w.shape)}")
+    hin, win, cin = x.shape
+    cout, wcin, kh, kw = w.shape
+    if wcin != cin or b.shape != (cout,):
+        raise ValueError(f"{kernel.name}: weights {tuple(w.shape)} / bias "
+                         f"{tuple(b.shape)} do not fit input channels {cin}")
+    for t in (w, b, eff, skip):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{kernel.name}: operands on different devices")
+    if eff is not None and eff.shape != (2, cin):
+        raise ValueError(f"{kernel.name}: eff must be (2, {cin})")
+    if skip is not None and (skip.shape != (hin + 4, win + 4, cin)
+                             or skip.dtype != dtype or not skip.is_contiguous()):
+        raise ValueError(f"{kernel.name}: skip must be contiguous "
+                         f"{(hin + 4, win + 4, cin)} {dtype}")
+    hout = (hin + 2 * pad - kh) // stride + 1
+    wout = (win + 2 * pad - kw) // stride + 1
+    if hout < 1 or wout < 1:
+        raise ValueError(f"{kernel.name}: empty output for input {(hin, win)}")
+    wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()          # HWIO
+    bt = b.to(dtype).float().contiguous()
+    effc = eff.float().contiguous() if eff is not None else None
+    y = torch.empty((hout, wout, cout), dtype=dtype, device=x.device)
+    stats = torch.zeros((2, cout), dtype=torch.float32, device=x.device)
+    a = torch.empty_like(x) if emit_input else None
+    kernel.call("fav_conv_in", x.device, ptr(x), ptr(wt), ptr(bt), ptr(effc),
+                ptr(skip), ptr(y), ptr(stats), ptr(a), hin, win, cin, hout, wout,
+                cout, kh, kw, stride, pad, int(relu), int(dtype == torch.bfloat16))
+    return (y, stats, a) if emit_input else (y, stats)
+
+
+def eff_affine(stats, scale, bias, count: int, eps: float = 1e-5):
+    """Instance-norm statistics -> per-channel (scale, bias) pair,
+    normalized = eff[0] * y + eff[1] (float32 stats, biased variance)."""
+    mean = stats[0] / count
+    var = torch.clamp(stats[1] / count - mean * mean, min=0.0)
+    es = torch.rsqrt(var + eps) * scale.float()
+    eb = bias.float() - mean * es
+    return torch.stack([es, eb])

@@ -1,0 +1,33 @@
+"""K3: the stylizer front's convs — counterpart of
+``fast_artistic_videos_tpu/ops/front_pallas.py`` (``_kernel`` / ``same_conv``).
+
+A zero-padded conv with the previous layer's instance-norm affine + ReLU
+fused into its prologue (padding stays zero: it is applied after the
+prologue) and instance-norm statistics of its output. Three launches compute
+the demo/canonical net's layers 0-2 (``models/stylizer.py`` ``_front``):
+c9s1-32 as (9, 9, 1, 4), then d64 and d128 as (3, 3, 2, 1).
+
+The TPU computes these layers in a 16-phase space-to-depth layout with
+top-margin bookkeeping (``out_row_shift``, ``chain_plan``) so its MXU sees
+128-lane operands; the port works directly on the logical NHWC grid.
+CUDA kernel: ``csrc/conv_in.cu``.
+"""
+
+from __future__ import annotations
+
+from ._build import Kernel
+from ._conv_in import conv_in, conv_in_plain
+
+KERNEL = Kernel("front_conv", "fast_artistic_videos_tpu_torch/csrc/conv_in.cu",
+                "fast_artistic_videos_tpu/ops/front_pallas.py:44")
+
+
+def same_conv(x, w, b, stride: int, pad: int, eff=None, relu: bool = False):
+    """x (H, W, C) float32/bfloat16, w (Cout, C, kh, kw), b (Cout,),
+    eff (2, C) float32. Returns (y, stats)."""
+    return conv_in(KERNEL, x, w, b, stride=stride, pad=pad, eff=eff, relu=relu)
+
+
+def same_conv_plain(x, w, b, stride: int, pad: int, eff=None, relu: bool = False):
+    """The plain PyTorch version of :func:`same_conv`."""
+    return conv_in_plain(x, w, b, stride=stride, pad=pad, eff=eff, relu=relu)

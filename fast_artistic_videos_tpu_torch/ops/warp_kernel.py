@@ -1,0 +1,73 @@
+"""K1: the banded bilinear warp — wrapper of ``csrc/warp_banded.cu`` and
+its plain PyTorch version.
+
+Replaces ``fast_artistic_videos_tpu/ops/warp_pallas.py`` ``_vpass_kernel``.
+Semantics are those of ``ops/warp.py`` ``_warp_banded_single`` in the JAX
+package: a vertical two-tap pass by dy, then a horizontal two-tap pass by
+dx over the vertical result (so a displaced column's OWN dy is used — the
+documented composition approximation), each tap reading zero when its shift
+lies outside [-band, band + 1] or its source lies outside the image. Work is
+in float32 for float32 or bfloat16 input; the result is cast back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._build import Kernel, ptr
+
+KERNEL = Kernel("warp_banded", "fast_artistic_videos_tpu_torch/csrc/warp_banded.cu",
+                "fast_artistic_videos_tpu/ops/warp_pallas.py:32")
+
+
+def _banded_pass(x, off, band: int, dim: int):
+    """One two-tap pass along `dim` (1 = rows, 2 = cols) of x (N, H, W, C)
+    float32 by the per-pixel offset `off` (N, H, W)."""
+    n = x.shape[dim]
+    base = torch.floor(off)
+    w0 = 1.0 - (off - base)
+    s0 = base.to(torch.int64)
+    shape = [1, 1, 1]
+    shape[dim] = n
+    pos = torch.arange(n, device=x.device).view(shape)
+    out = torch.zeros_like(x)
+    for j, wj in ((0, w0), (1, 1.0 - w0)):
+        s = s0 + j
+        src = pos + s
+        ok = (s >= -band) & (s <= band + 1) & (src >= 0) & (src < n)
+        idx = src.clamp(0, n - 1).unsqueeze(-1).expand(x.shape)
+        g = torch.gather(x, dim, idx)
+        out = out + g * (wj * ok)[..., None]
+    return out
+
+
+def warp_banded_plain(img, flow, band: int):
+    """img (N, H, W, C) float32/bfloat16, flow (N, H, W, 2) (dx, dy)."""
+    x = img.float()
+    f = flow.float()
+    v = _banded_pass(x, f[..., 1], band, 1)
+    return _banded_pass(v, f[..., 0], band, 2).to(img.dtype)
+
+
+def warp_banded(img, flow, band: int):
+    """K1. img (N, H, W, C) float32 or bfloat16; flow (N, H, W, 2) float32
+    (dx, dy). A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel or raises."""
+    if img.device.type == "cpu":
+        return warp_banded_plain(img, flow, band)
+    if img.device.type != "cuda" or flow.device != img.device:
+        raise ValueError(f"warp_banded: img on {img.device}, flow on {flow.device}")
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"warp_banded: unsupported dtype {img.dtype}")
+    if flow.dtype != torch.float32:
+        raise TypeError("warp_banded: flow must be float32")
+    if img.ndim != 4 or flow.shape != img.shape[:3] + (2,):
+        raise ValueError(f"warp_banded: shapes {tuple(img.shape)} / {tuple(flow.shape)}")
+    if not (img.is_contiguous() and flow.is_contiguous()):
+        raise ValueError("warp_banded: inputs must be contiguous")
+    n, h, w, c = img.shape
+    out = torch.empty_like(img)
+    if out.numel():
+        KERNEL.call("fav_warp_banded", img.device, ptr(img), ptr(flow), ptr(out),
+                    n, h, w, c, int(band), int(img.dtype == torch.bfloat16))
+    return out

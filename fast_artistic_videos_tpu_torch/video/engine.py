@@ -1,0 +1,183 @@
+"""The prior-conditioned stylization engine — counterpart of
+``fast_artistic_videos_tpu/video/engine.py`` (``stylize_first`` and
+``stylize_next``).
+
+Per frame: certainty erosion, flow warp of the previous stylized frame
+(kernel K1 on CUDA for the banded warp), masking, occlusion fill, the
+7-channel VGG-space input, the stylizer forward and de-processing, all on
+the engine's device. The recurrence carry (the previous stylized frame)
+stays a device tensor between calls.
+
+Frames are (H, W, 3) RGB, float32 in [0, 1] or uint8; flow is (H, W, 2)
+(dx, dy) mapping frame-i pixels to frame-(i-1) positions (backward flow);
+certainty is (H, W) in [0, 1]. numpy arrays or tensors are accepted.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..ops import filters, warp
+from ..ops.preprocess import vgg_deprocess, vgg_preprocess
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    fill_occlusions: str = "vgg-mean"      # 'vgg-mean' | 'uniform-random'
+    occlusions_min_filter: int = 7
+    dtype: str = "float32"                 # 'float32' | 'bfloat16'
+    seed: int = 0                          # seeds the uniform-random fill
+    exact_warp: bool = False               # True: exact gather warp;
+                                           # False: banded warp (K1 on CUDA)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _unit_f32(x):
+    """[0, 1] float32 from float or uint8 input."""
+    if x.dtype == torch.uint8:
+        return x.float() / 255.0
+    return x.float()
+
+
+def _quantize_u8(y):
+    return torch.clamp(torch.round(y * 255.0), 0.0, 255.0).to(torch.uint8)
+
+
+class StylizerEngine:
+    """Stylizes frames with one (image model, video model) pair.
+
+    apply_img may be None: the video model then stylizes independent frames
+    with a zero prior and zero certainty (``-model_img self``)."""
+
+    def __init__(self, apply_vid: Callable, params_vid, apply_img: Optional[Callable] = None,
+                 params_img=None, stride_multiple: int = 4,
+                 config: EngineConfig = EngineConfig(), device="cpu"):
+        self.apply_vid = apply_vid
+        self.params_vid = params_vid
+        self.apply_img = apply_img
+        self.params_img = params_img
+        self.stride_multiple = max(1, stride_multiple)
+        self.config = config
+        self.device = torch.device(device)
+        self._dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+        self._gen = None
+        if config.fill_occlusions == "uniform-random":
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(config.seed)
+
+    # -- device-side steps -------------------------------------------------
+
+    def _fill(self, cert3, shape):
+        """Occlusion fill in VGG space: zeros for 'vgg-mean', preprocessed
+        uniform noise masked to the occlusions for 'uniform-random'."""
+        if self._gen is not None:
+            rnd = torch.rand(shape, generator=self._gen, device=self.device)
+            return vgg_preprocess(rnd) * (1.0 - cert3)
+        return torch.zeros(shape, device=self.device)
+
+    def _run_model(self, which, x):
+        if which == "img":
+            return self.apply_img(self.params_img, x.to(self._dtype))
+        return self.apply_vid(self.params_vid, x.to(self._dtype))
+
+    def _first(self, contents):
+        """contents (N, H, W, 3) -> stylized (N, H, W, 3) float32 [0, 1]."""
+        c = vgg_preprocess(_unit_f32(contents))
+        if self.apply_img is not None:
+            y = self._run_model("img", c)
+        else:
+            n, h, w = contents.shape[:3]
+            cert3 = torch.zeros((n, h, w, 3), device=self.device)
+            fill = self._fill(cert3, (n, h, w, 3))
+            zeros = torch.zeros((n, h, w, 1), device=self.device)
+            y = self._run_model("vid", torch.cat([c, fill, zeros], dim=-1))
+        return torch.clamp(vgg_deprocess(y), 0.0, 1.0).float()
+
+    def _assemble(self, content, prior_rgb, cert):
+        """The 7-channel stylizer input (content, masked and filled prior,
+        certainty), in VGG space."""
+        h, w = content.shape[:2]
+        cert1 = cert[None, :, :, None]
+        cert3 = cert1.expand(1, h, w, 3)
+        c = vgg_preprocess(_unit_f32(content))[None]
+        prior = vgg_preprocess(prior_rgb.float())[None] * cert3
+        prior = prior + self._fill(cert3, (1, h, w, 3))
+        return torch.cat([c, prior, cert1], dim=-1)
+
+    def _stylize_with_prior(self, content, prior_rgb, cert):
+        y = self._run_model("vid", self._assemble(content, prior_rgb, cert))
+        return torch.clamp(vgg_deprocess(y[0]), 0.0, 1.0).float()
+
+    def _next(self, content, prev_stylized, flow, cert, band, pre_eroded):
+        if not pre_eroded:
+            cert = filters.min_filter(cert, self.config.occlusions_min_filter)
+        prior_rgb = warp.bilinear_warp(prev_stylized, flow, band=band)
+        return self._stylize_with_prior(content, prior_rgb, cert)
+
+    # -- host API ------------------------------------------------------------
+
+    def _tensor(self, arr):
+        if isinstance(arr, np.ndarray):
+            arr = torch.from_numpy(np.ascontiguousarray(arr))
+        return arr.to(self.device)
+
+    def _pad(self, arr, mode="edge"):
+        """Stride padding at the bottom and right: edge replication, or
+        zeros for mode='constant'."""
+        arr = self._tensor(arr)
+        h, w = arr.shape[0], arr.shape[1]
+        hp, wp = _round_up(h, self.stride_multiple), _round_up(w, self.stride_multiple)
+        if (hp, wp) == (h, w):
+            return arr, (h, w)
+        if mode == "edge":
+            rows = torch.arange(hp, device=arr.device).clamp(max=h - 1)
+            cols = torch.arange(wp, device=arr.device).clamp(max=w - 1)
+            return arr[rows][:, cols], (h, w)
+        out = arr.new_zeros((hp, wp) + tuple(arr.shape[2:]))
+        out[:h, :w] = arr
+        return out, (h, w)
+
+    @torch.no_grad()
+    def stylize_first(self, content, emit_u8=False):
+        """Stylize one frame independently. Returns the (H, W, 3) float32
+        device tensor, and with emit_u8 also its uint8 quantization."""
+        content, (h, w) = self._pad(content)
+        out = self._first(content[None])[0, :h, :w]
+        if emit_u8:
+            return out, _quantize_u8(out)
+        return out
+
+    def _band(self, flow, band_hint):
+        if self.config.exact_warp:
+            return None
+        if band_hint is not None:
+            return band_hint
+        if isinstance(flow, np.ndarray):
+            return warp.flow_band(float(np.abs(flow).max()))
+        return warp.flow_band(float(flow.abs().max()))
+
+    @torch.no_grad()
+    def stylize_next(self, content, prev_stylized, flow, cert, band_hint=None,
+                     emit_u8=False, pre_eroded=False):
+        """One recurrent step. prev_stylized is usually the tensor a previous
+        stylize_* call returned. band_hint: a warp band known to cover
+        |flow| (the streaming provider's), which saves the flow-range
+        readback. pre_eroded: the certainty is already eroded (the provider
+        erodes it at flow resolution), so the min-filter is skipped."""
+        band = self._band(flow, band_hint)
+        content, (h, w) = self._pad(content)
+        prev_stylized, _ = self._pad(prev_stylized)
+        flow, _ = self._pad(flow)
+        cert, _ = self._pad(cert, mode="constant")   # padded area = occluded
+        out = self._next(content, prev_stylized, flow.float(), cert.float(), band,
+                         pre_eroded)[:h, :w]
+        if emit_u8:
+            return out, _quantize_u8(out)
+        return out

@@ -1,0 +1,147 @@
+"""The port's CUDA kernels (K1 banded warp, K2 chain conv, K3 front conv)
+against their plain PyTorch versions on a card, and the stylizer's kernel
+path against its plain (cuDNN) path. Needs a CUDA card: every test skips
+without one. This file imports no jax, so on the card host it runs alone:
+
+  python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+"""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
+from fast_artistic_videos_tpu_torch.ops import front_kernel, rblock_kernel, warp_kernel
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(a, dev, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("shape,band,dtype,tol", [
+    ((2, 67, 131, 3), 8, torch.float32, 1e-5),
+    ((1, 45, 77, 2), 16, torch.float32, 1e-5),
+    ((1, 33, 41, 64), 8, torch.float32, 1e-5),
+    ((1, 50, 70, 32), 8, torch.bfloat16, 2 ** -7),
+])
+def test_warp_kernel_matches_plain(cuda, shape, band, dtype, tol):
+    rng = np.random.default_rng(1)
+    img = _t(rng.random(shape), cuda, dtype)
+    flow = _t((rng.random(shape[:3] + (2,)) * 2 - 1) * band * 1.3, cuda)
+    before = warp_kernel.KERNEL.launches
+    got = warp_kernel.warp_banded(img, flow, band)
+    assert warp_kernel.KERNEL.launches == before + 1
+    want = warp_kernel.warp_banded_plain(img, flow, band)
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("eff,relu,skip,emit,cout", [
+    (False, False, False, False, 32), (True, True, False, True, 48),
+    (True, False, True, True, 64)])
+def test_chain_conv_kernel_matches_plain(cuda, dtype, tol, eff, relu, skip, emit, cout):
+    rng = np.random.default_rng(2)
+    h, w, c = 37, 29, 40
+    x = _t(rng.standard_normal((h, w, c)), cuda, dtype)
+    wt = _t(rng.standard_normal((cout, c, 3, 3)) / np.sqrt(9 * c), cuda)
+    b = _t(rng.standard_normal(cout) * 0.1, cuda)
+    kw = dict(eff=_t(np.stack([rng.random(c) + 0.5, rng.standard_normal(c) * 0.1]), cuda)
+              if eff else None, pre_relu=relu,
+              skip=_t(rng.standard_normal((h + 4, w + 4, c)), cuda, dtype) if skip else None,
+              emit_input=emit)
+    got = rblock_kernel.chain_conv(x, wt, b, **kw)
+    want = rblock_kernel.chain_conv_plain(x, wt, b, **kw)
+    for g, ref in zip(got, want):
+        g, ref = g.float(), ref.float()
+        assert ((g - ref).norm() / ref.norm()).item() <= tol
+
+
+@pytest.mark.parametrize("k,stride,pad,cin,cout", [(9, 1, 4, 7, 32), (3, 2, 1, 32, 64),
+                                                   (3, 2, 1, 20, 40)])
+def test_front_conv_kernel_matches_plain(cuda, k, stride, pad, cin, cout):
+    rng = np.random.default_rng(3)
+    x = _t(rng.standard_normal((52, 68, cin)), cuda)
+    wt = _t(rng.standard_normal((cout, cin, k, k)) / np.sqrt(k * k * cin), cuda)
+    b = _t(rng.standard_normal(cout) * 0.1, cuda)
+    eff = _t(np.stack([rng.random(cin) + 0.5, rng.standard_normal(cin)]), cuda)
+    got = front_kernel.same_conv(x, wt, b, stride, pad, eff=eff, relu=True)
+    want = front_kernel.same_conv_plain(x, wt, b, stride, pad, eff=eff, relu=True)
+    for g, ref in zip(got, want):
+        assert ((g - ref).norm() / ref.norm()).item() <= 1e-4
+
+
+def test_stylizer_kernel_path_matches_plain_path(cuda):
+    spec, params, _ = checkpoint.load_model("demo", cuda)
+    x = _t(np.random.default_rng(4).standard_normal((1, 96, 128, 7)) * 60, cuda)
+    before = (front_kernel.KERNEL.launches, rblock_kernel.KERNEL.launches)
+    got = stylizer.apply(params, spec, x)                 # CUDA: kernels by default
+    assert (front_kernel.KERNEL.launches - before[0],
+            rblock_kernel.KERNEL.launches - before[1]) == (3, 10)
+    want = stylizer.apply(params, spec, x, fused=False)
+    assert (got - want).abs().max().item() / 255.0 <= 1e-3
+
+
+def test_kernels_launch_on_the_tensors_card(cuda):
+    """A tensor on cuda:N launches on card N while card 0 is current, and
+    from another thread too (the flow provider runs on the prefetch thread,
+    and --flow_device puts it on its own card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    rng = np.random.default_rng(5)
+    img = _t(rng.random((1, 40, 56, 3)), dev)
+    flow = _t((rng.random((1, 40, 56, 2)) * 2 - 1) * 10, dev)
+    # 32 input channels: the conv needs more than the default 48 KiB of
+    # shared memory, a limit that is lifted per card
+    x = _t(rng.standard_normal((20, 24, 32)), dev)
+    wt = _t(rng.standard_normal((32, 32, 3, 3)) / 17, dev)
+    b = _t(rng.standard_normal(32) * 0.1, dev)
+
+    def check():
+        got = warp_kernel.warp_banded(img, flow, 8)
+        want = warp_kernel.warp_banded_plain(img, flow, 8)
+        assert (got - want).abs().max().item() <= 1e-5
+        for g, ref in zip(rblock_kernel.chain_conv(x, wt, b),
+                          rblock_kernel.chain_conv_plain(x, wt, b)):
+            assert ((g - ref).norm() / ref.norm()).item() <= 1e-4
+
+    assert torch.cuda.current_device() == 0
+    check()
+    errors = []
+
+    def in_thread():
+        try:
+            check()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+    t = threading.Thread(target=in_thread)
+    t.start()
+    t.join()
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+
+
+def test_wrapper_raises_instead_of_falling_back(cuda):
+    x = torch.zeros(1, 8, 8, 3, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        warp_kernel.warp_banded(x, torch.zeros(1, 8, 8, 2, device=cuda), 8)
+    with pytest.raises(ValueError):
+        rblock_kernel.chain_conv(torch.zeros(8, 8, 4, device=cuda),
+                                 torch.zeros(4, 5, 3, 3, device=cuda),
+                                 torch.zeros(4, device=cuda))
