@@ -7,20 +7,31 @@ Phases (any failure exits non-zero, before the result line is printed):
   1. the device, torch and CUDA versions, and the card's name and power
      limit as nvidia-smi reports them;
   2. build the hand-written kernels from csrc/ (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version at the shapes the 1080p
-     main path gives it (kernel and plain times: CUDA events, median of 20);
-  4. the main path: the streaming 2D stylizer (bundled demo model, bundled
+  3. each kernel against its plain PyTorch version at the shapes the main
+     paths give it (kernel, plain and library-call times: CUDA events,
+     median of 20), with the least time the card could take (bound_ms);
+  4. the 2D main path: the streaming stylizer (bundled demo model, bundled
      flow estimator, flow at half resolution) on 12 seeded 1080p pan
      frames, float32 then bfloat16, through the CLI's build functions and
      VideoDriver.run; the launch counters must rise by the expected amount
      per frame and every output must be finite;
-  5. the port on the card against the JAX package's committed CLI output
-     (tests/fixtures/torch_parity_demo.npz), mean-abs <= 1e-2 per frame.
+  5. the port on the card against the JAX package's committed 2D CLI output
+     (tests/fixtures/torch_parity_demo.npz), mean-abs <= 1e-2 per frame;
+  6. the VR main path: the spherical stylizer on 6 frames of six seeded
+     922x922 pan faces (overlap 128), float32 then bfloat16, through
+     cli/stylize_vr_video.py's build functions and VRDriver.run, with exact
+     launch counts, finite faces, fps with and without PNG encoding, stage
+     times, the device's busy share (torch.profiler), and one face step
+     through the kernels against the plain versions;
+  7. the port's VR CLI on the card against the JAX package's committed VR
+     CLI output (tests/fixtures/torch_parity_vr.npz), mean-abs <= 1e-2 per
+     face.
 
-The last two lines of standard output are a JSON line per kernel set
-(name, route, source, the TPU kernel it replaces, launches in the float32
-main-path run, max abs error, kernel and plain milliseconds) and
-{"ok": true, "device": {...}}. float32 runs with TF32 off.
+The last lines of standard output are the card's name and power limit, a
+JSON line with one row per kernel (name, route, source, the TPU kernel it
+replaces, launches in its main path's float32 run, max abs error, kernel,
+plain, bound and library-call milliseconds) and {"ok": true, "device":
+{...}}. float32 runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -36,6 +47,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES_1080 = 12
 SIZE_1080 = (1080, 1920)
 PAN_1080 = (6, 3)          # (dx, dy) pixels per frame
+VR_FACE, VR_OVERLAP = 922, 128   # 768-px cube edges expanded 1.2x
+VR_FRAMES = 6
+VR_PAN = (8, 2)
+# the card's published peaks (H100 SXM; float32 without tensor cores, since
+# float32 runs with TF32 off): the bound of a kernel is the larger of its
+# bytes over the memory rate and its operations over the rate of its type
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def log(*a):
@@ -82,6 +101,27 @@ def pan_frames(seed, n, h, w, step):
     return np.stack([u8[t * sy:t * sy + h, t * sx:t * sx + w] for t in range(n)])
 
 
+def vr_faces(seed, n, face, step):
+    """(n, 6, face, face, 3) uint8: six pan streams, one per cube face, cut
+    side by side from one pan 6 faces wide."""
+    import numpy as np
+
+    pans = pan_frames(seed, n, face, 6 * face, step)
+    return np.stack([np.stack([p[:, k * face:(k + 1) * face] for k in range(6)])
+                     for p in pans])
+
+
+def bound(nbytes, flops, dtype):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _dname(torch, dtype):
+    return "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -103,11 +143,19 @@ def check_kernels(torch):
         err = (got.float() - want.float()).abs().max().item()
         ms = _time_ms(torch, lambda: warp_kernel.warp_banded(img, flow, band))
         plain_ms = _time_ms(torch, lambda: warp_kernel.warp_banded_plain(img, flow, band))
+        # each input read once (image, flow), the output written once; about
+        # 6 multiply-adds per output element
+        nel = img.numel()
+        b_ms, b_by = bound(2 * nel * img.element_size() + flow.numel() * 4, 12 * nel,
+                           _dname(torch, dtype))
         log(f"K1 warp {tuple(shape)} band {band} {dtype}: max_abs_err {err:.3g} "
-            f"(tol {tol:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"(tol {tol:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"bound {b_ms:.4f} ms ({b_by})")
         if not err <= tol:
             raise AssertionError(f"K1 warp {shape} band {band} {dtype}: err {err}")
-        res["warp_banded"].append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype))
+        # no single PyTorch call computes the banded two-pass approximation
+        res["warp_banded"].append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype,
+                                       bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
     f32, bf16 = torch.float32, torch.bfloat16
     warp_case((1, 1080, 1920, 3), 16, f32, 1e-5)       # engine prior warp
@@ -118,6 +166,9 @@ def check_kernels(torch):
     for shape in ((1, 272, 480, 16), (1, 136, 240, 32), (1, 68, 120, 64), (1, 34, 60, 96)):
         warp_case(shape, 8, f32, 1e-5)                  # estimator feature warps
     warp_case((1, 136, 240, 32), 8, bf16, 2 ** -7)
+    # the VR path: a face's temporal warp, the six faces' batched feature warps
+    warp_case((1, VR_FACE, VR_FACE, 3), 16, f32, 1e-5)
+    warp_case((6, 232, 232, 16), 8, f32, 1e-5)
 
     def conv_case(kernel, h, w, cin, cout, k, stride, pad, eff, relu, skip, emit, dtype):
         x = torch.randn(h, w, cin, generator=g).to(dev, dtype)
@@ -149,13 +200,24 @@ def check_kernels(torch):
         tol = 1e-4 if dtype == f32 else 1e-2
         ms = _time_ms(torch, lambda: _conv_in.conv_in(kernel, x, wt, b, **kw))
         plain_ms = _time_ms(torch, lambda: _conv_in.conv_in_plain(x, wt, b, **kw))
+        # the library yardstick: the convolution alone (cuDNN), without the
+        # fused prologue and statistics
+        xc, wc, bc = x.permute(2, 0, 1)[None], wt.to(dtype), b.to(dtype)
+        lib_ms = _time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, bc, stride, pad))
+        esz = x.element_size()
+        nbytes = (x.numel() + y.numel() + (s.numel() if skip else 0)
+                  + (x.numel() if emit else 0)) * esz + wt.numel() * 4
+        b_ms, b_by = bound(nbytes, 2 * y.shape[0] * y.shape[1] * cout * cin * k * k,
+                           _dname(torch, dtype))
         log(f"{kernel.name} ({h},{w},{cin})->{cout} k{k} s{stride} p{pad} eff={eff} "
             f"relu={relu} skip={skip} emit={emit} {dtype}: rel_l2 {rel:.3g} "
             f"stats {st:.3g} emit_err {a_err:.3g} max_abs {err:.3g} (tol {tol:g}) "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms conv2d {lib_ms:.3f} ms "
+            f"bound {b_ms:.3f} ms ({b_by})")
         if not (rel <= tol and st <= tol and a_err <= tol):
             raise AssertionError(f"{kernel.name} mismatch: rel {rel} stats {st} a {a_err}")
-        res[kernel.name].append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype))
+        res[kernel.name].append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype,
+                                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
 
     K3, K2 = front_kernel.KERNEL, rblock_kernel.KERNEL
     for dtype in (f32, bf16):
@@ -168,7 +230,74 @@ def check_kernels(torch):
         conv_case(K2, 290, 500, 128, 128, 3, 1, 0, True, True, False, True, dtype)
         conv_case(K2, 288, 498, 128, 128, 3, 1, 0, True, True, False, False, dtype)
         conv_case(K2, 282, 492, 128, 128, 3, 1, 0, True, False, True, True, dtype)
+    res["strip_warp"] = check_strip_warp(torch, g)
     return res
+
+
+def check_strip_warp(torch, g):
+    """K5 on the four 922-px border maps (overlap 128), C = 3, float32 and
+    bfloat16 input, against its plain version; the library yardstick is
+    grid_sample over the strip (bilinear, zero padding, align_corners)."""
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
+    from fast_artistic_videos_tpu_torch.video import vr_geometry as vr
+
+    f = VR_FACE
+    maps = {"left": vr.perspective_warp_map_left(f, VR_OVERLAP, f),
+            "right": vr.perspective_warp_map_right(f, VR_OVERLAP, f),
+            "top": vr.perspective_warp_map_top(f, VR_OVERLAP, f),
+            "bottom": vr.perspective_warp_map_bottom(f, VR_OVERLAP, f)}
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        img = torch.rand((f, f, 3), generator=g).to("cuda", dtype)
+        for name, m in maps.items():
+            fn = strip_warp_kernel.make_static_strip_warp(m)
+            got = fn(img)
+            want = fn.plain(img)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ms = _time_ms(torch, lambda: fn(img))
+            plain_ms = _time_ms(torch, lambda: fn.plain(img))
+            # grid_sample over the strip: normalized absolute source coords
+            y0, y1, x0, x1 = fn.box
+            yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float64)
+            sub = m[y0:y1, x0:x1].astype(np.float64)
+            ok = np.all(np.abs(sub) < 9999.0 / 2, axis=-1)
+            gx = np.where(ok, (xx + sub[..., 0]) * 2 / (f - 1) - 1, -10.0)
+            gy = np.where(ok, (yy + sub[..., 1]) * 2 / (f - 1) - 1, -10.0)
+            grid = torch.from_numpy(np.stack([gx, gy], -1)[None].astype(np.float32)).cuda()
+            src = img.float().permute(2, 0, 1)[None]
+
+            def lib():
+                return torch.nn.functional.grid_sample(
+                    src, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+            lib_err = (lib()[0].permute(1, 2, 0) - want[y0:y1, x0:x1]).abs().max().item()
+            lib_ms = _time_ms(torch, lib)
+            # the kernel's own device time (the event time above includes
+            # the host's launch path)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn(img)
+                torch.cuda.synchronize()
+            dev_ms = _device_ms(torch, prof, "strip_warp_kernel") / 20
+            # the least bytes: the source box the taps touch (inside the
+            # image), read once, and the output frame written once; 6
+            # multiply-adds per element
+            sy, sx = np.floor((yy + sub[..., 1])[ok]), np.floor((xx + sub[..., 0])[ok])
+            rows = min(sy.max() + 2, f) - max(sy.min(), 0)
+            cols = min(sx.max() + 2, f) - max(sx.min(), 0)
+            b_ms, b_by = bound(rows * cols * 3 * img.element_size() + got.numel() * 4,
+                               12 * (y1 - y0) * (x1 - x0) * 3, _dname(torch, dtype))
+            log(f"K5 strip warp {name} {f}x{f}x3 {dtype}: max_abs_err {err:.3g} (tol 1e-5) "
+                f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, profiler) plain "
+                f"{plain_ms:.4f} ms grid_sample {lib_ms:.4f} ms "
+                f"(vs plain {lib_err:.3g}) bound {b_ms:.4f} ms ({b_by})")
+            if not err <= 1e-5:
+                raise AssertionError(f"K5 {name} {dtype}: err {err}")
+            out.append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +440,212 @@ def stage_times(torch, workdir):
                                  f"path {err} > {tol}")
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the VR main path
+# ---------------------------------------------------------------------------
+
+def _vr_options(pattern, prefix, dtype, frames):
+    from fast_artistic_videos_tpu_torch.cli import stylize_vr_video as vcli
+
+    opt, _ = vcli.parse_options([
+        "--input_pattern", pattern, "--output_prefix", prefix, "--model_vid", "demo",
+        "--flow_model", "bundled", "--flow_scale", "0.5", "--dtype", dtype,
+        "--num_frames", str(frames), "--overlap_pixel_w", str(VR_OVERLAP),
+        "--overlap_pixel_h", str(VR_OVERLAP)])
+    return opt
+
+
+def _vr_build(torch, opt):
+    from fast_artistic_videos_tpu_torch.cli import stylize_vr_video as vcli
+    from fast_artistic_videos_tpu_torch.video.driver_vr import VRDriver
+
+    device = vcli.resolve_device("cuda")
+    engine = vcli.build_engine(opt, device)
+    return VRDriver(engine, opt, batched_flow_provider=vcli.build_flow_provider(opt, device))
+
+
+def _vr_drive(torch, opt, record=None, write=True):
+    """One VR CLI run through the CLI's build functions; returns (faces,
+    seconds on CUDA events). write=False skips the PNG encoding (the writer
+    thread still downloads every uint8 face)."""
+    driver = _vr_build(torch, opt)
+    if record is not None:
+        for name in ("stylize_first", "stylize_with_prior"):
+            fn = getattr(driver.engine, name)
+
+            def wrapped(*a, _fn=fn, **k):
+                out = _fn(*a, **k)
+                record.append(out)
+                return out
+            setattr(driver.engine, name, wrapped)
+    if not write:
+        driver.save = lambda path, u8: None
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    n = driver.run(progress=False)
+    e.record()
+    torch.cuda.synchronize()
+    return n, s.elapsed_time(e) / 1000.0
+
+
+def _device_ms(torch, prof, name=""):
+    """Summed device time (ms) of the kernels a torch.profiler run recorded,
+    of those whose name contains `name`."""
+    total = 0.0
+    for ev in prof.key_averages():
+        if name not in ev.key:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        total += t
+    return total / 1000.0
+
+
+def run_vr_path(torch, workdir):
+    """Phase 6. Returns (launches of the float32 run, {dtype: fps})."""
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.core import io
+    from fast_artistic_videos_tpu_torch.ops import (front_kernel, rblock_kernel,
+                                                    strip_warp_kernel, warp_kernel)
+
+    kernels = {k.name: k for k in (warp_kernel.KERNEL, rblock_kernel.KERNEL,
+                                   front_kernel.KERNEL, strip_warp_kernel.KERNEL)}
+    faces = vr_faces(11, VR_FRAMES, VR_FACE, VR_PAN)
+    d = os.path.join(workdir, "vr")
+    os.makedirs(d, exist_ok=True)
+    for t, frame in enumerate(faces, 1):
+        for k, img in enumerate(frame, 1):
+            io.write_ppm(os.path.join(d, f"f{t:04d}_{k}.ppm"), img)
+    pattern = os.path.join(d, "f%04d_%d.ppm")
+    n = VR_FRAMES
+    # per frame: K5 12 border-prior warps + 24 blend warps (+ 4 mask warps
+    # when the geometry is built); per face: K3 3 and K2 10 launches; per
+    # frame after the first: K1 6 temporal warps, 6 feature warps (3 pyramid
+    # levels x 2 directions, the 6 faces batched) and 6 consistency samples
+    expect = {"strip_warp": 36 * n + 4, "front_conv": 18 * n, "res_chain_conv": 60 * n,
+              "warp_banded": 18 * (n - 1)}
+    counted, fps = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        prefix = os.path.join(d, dtype, "o")
+        _vr_drive(torch, _vr_options(pattern, prefix, dtype, 2))       # warm-up
+        for k in kernels.values():
+            k.launches = 0
+        outs = []
+        faces_done, secs = _vr_drive(torch, _vr_options(pattern, prefix, dtype, n), record=outs)
+        launches = {name: k.launches for name, k in kernels.items()}
+        log(f"VR path {dtype}: {faces_done} faces ({n} frames of 6 x {VR_FACE}^2, overlap "
+            f"{VR_OVERLAP}) in {secs:.3f} s ({n / secs:.3f} fps, CUDA events over the whole "
+            f"run, PNG output), launches {launches}, expected {expect}")
+        if faces_done != 6 * n or launches != expect:
+            raise AssertionError(f"VR path {dtype}: {faces_done} faces, "
+                                 f"launches {launches} != {expect}")
+        if len(outs) != 6 * n:
+            raise AssertionError(f"VR path {dtype}: {len(outs)} stylized faces")
+        for o in outs:
+            if tuple(o.shape) != (VR_FACE, VR_FACE, 3) or not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"VR path {dtype}: bad face {tuple(o.shape)}")
+        last = io.load_image_u8(f"{prefix}{n}_5.png")
+        if last.shape != (VR_FACE, VR_FACE, 3) or last.std() < 1.0:
+            raise AssertionError("VR path: the written face is degenerate")
+        counted[dtype] = launches
+        fps[dtype] = n / secs
+        _, secs = _vr_drive(torch, _vr_options(pattern, prefix, dtype, n), write=False)
+        fps[dtype + "_no_png"] = n / secs
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _vr_drive(torch, _vr_options(pattern, prefix, dtype, n), write=False)
+        busy = _device_ms(torch, prof) / 1000.0 / secs
+        log(f"VR path {dtype} without PNG encoding: {n / secs:.3f} fps; device kernel "
+            f"time / wall time {busy:.3f} (torch.profiler kernel time over the wall time "
+            f"of the unprofiled run)")
+    vr_stage_times(torch, faces)
+    return counted["float32"], fps
+
+
+def vr_stage_times(torch, faces):
+    """Per-frame device time of the VR stages (CUDA events, median of 8): the
+    batched flow step, one face step (position 4: four border warps, the
+    temporal warp, the stylizer), and the blend plus the outputs. Then that
+    face step through the kernels against the plain versions (K5, K1 and the
+    cuDNN stylizer) on the same input: float32 max-abs <= 1e-3, bfloat16
+    mean-abs <= 1e-2, on the [0, 1] output."""
+    from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
+    from fast_artistic_videos_tpu_torch.ops import warp_kernel
+
+    dev = torch.device("cuda")
+    spec = checkpoint.load_model("demo")[0]
+    frames = [torch.from_numpy(f).to(dev).float() / 255.0 for f in faces[:2]]
+    for dtype in ("float32", "bfloat16"):
+        driver = _vr_build(torch, _vr_options("unused_%d_%d.ppm", "unused", dtype, 2))
+        driver._geometry(frames[0][0])
+        provider = driver.batched_flow
+        provider(frames[0])
+        driver._streamed = provider(frames[1])
+        driver.segments = [frames[1][p] for p in range(6)]
+        driver.prev_segments = [frames[0][p] for p in range(6)]
+        step = [0]
+
+        def flow_step():
+            step[0] += 1
+            return provider(frames[step[0] % 2])
+        t_flow = _time_ms(torch, flow_step, n=8)
+        i, img = 7 + 4, frames[1][4]
+        t_face = _time_ms(torch, lambda: driver._face_step(i, img), n=8)
+        t_out = _time_ms(torch, lambda: driver._outputs(driver.blend_other_sides()), n=8)
+        got = driver._face_step(i, img)
+        # the same step through the plain versions on the card
+        g = driver.geo
+        kernel_warps = (g.warp_left, g.warp_right, g.warp_top, g.warp_bottom)
+        apply_vid = driver.engine.apply_vid
+        banded = warp_kernel.warp_banded
+        g.warp_left, g.warp_right, g.warp_top, g.warp_bottom = (w.plain for w in kernel_warps)
+        driver.engine.apply_vid = lambda p, x: stylizer.apply(p, spec, x, fused=False)
+        warp_kernel.warp_banded = warp_kernel.warp_banded_plain
+        try:
+            want = driver._face_step(i, img)
+        finally:
+            g.warp_left, g.warp_right, g.warp_top, g.warp_bottom = kernel_warps
+            driver.engine.apply_vid = apply_vid
+            warp_kernel.warp_banded = banded
+        diff = (got - want).abs()
+        err, tol = ((diff.max().item(), 1e-3) if dtype == "float32"
+                    else (diff.mean().item(), 1e-2))
+        log(f"VR stages {dtype} ({VR_FACE}^2 faces): batched flow step {t_flow:.3f} ms/frame "
+            f"(band {provider.last_band}), one face step {t_face:.3f} ms, blend + outputs "
+            f"{t_out:.3f} ms; face step kernels vs plain versions "
+            f"{'max' if dtype == 'float32' else 'mean'}-abs {err:.3g} (tol {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"VR face step {dtype}: kernel path vs plain {err} > {tol}")
+
+
+def check_vr_fixture(torch, workdir):
+    """Phase 7."""
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.cli import stylize_vr_video as vcli
+    from fast_artistic_videos_tpu_torch.core import io
+
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_parity_vr.npz")) as z:
+        faces, want, overlap = z["faces"], z["outputs"], int(z["overlap"])
+    d = os.path.join(workdir, "vr_fixture")
+    os.makedirs(d, exist_ok=True)
+    for t, frame in enumerate(faces, 1):
+        for k, img in enumerate(frame, 1):
+            io.write_ppm(os.path.join(d, f"f{t:04d}_{k}.ppm"), img)
+    prefix = os.path.join(d, "out", "o")
+    vcli.main(["--input_pattern", os.path.join(d, "f%04d_%d.ppm"), "--output_prefix", prefix,
+               "--model_vid", "demo", "--flow_model", "bundled", "--flow_scale", "0.5",
+               "--overlap_pixel_w", str(overlap), "--overlap_pixel_h", str(overlap),
+               "--device", "cuda"])
+    got = np.stack([np.stack([io.load_image_u8(f"{prefix}{t}_{p}.png") for p in range(6)])
+                    for t in range(1, len(faces) + 1)])
+    err = np.abs(got.astype(np.float32) - want.astype(np.float32)).mean(axis=(2, 3, 4)) / 255
+    log(f"VR fixture parity (port VR CLI on the card vs JAX VR CLI on CPU), mean-abs per "
+        f"face: max {float(err.max()):.3g} (tol 1e-2)")
+    if got.shape != want.shape or not (err <= 1e-2).all():
+        raise AssertionError(f"VR fixture parity failed: {err}")
+
+
 def check_fixture(torch, workdir):
     import numpy as np
     from fast_artistic_videos_tpu_torch.core import io
@@ -349,7 +684,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from fast_artistic_videos_tpu_torch.ops import _build, front_kernel, rblock_kernel
-    from fast_artistic_videos_tpu_torch.ops import warp_kernel
+    from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel, warp_kernel
 
     # 1. environment
     smi = _nvidia_smi()
@@ -364,21 +699,33 @@ def main() -> int:
     # 3. kernels
     res = check_kernels(torch)
     with tempfile.TemporaryDirectory() as work:
-        # 4. main path; 5. fixture parity
+        # 4. 2D main path; 5. its fixture parity; 6. VR main path; 7. its
+        # fixture parity
         counted, fps = run_main_path(torch, work)
         stage_times(torch, work)
         check_fixture(torch, work)
+        vr_counted, vr_fps = run_vr_path(torch, work)
+        check_vr_fixture(torch, work)
     torch.cuda.synchronize()
 
     rows = []
-    for k in (warp_kernel.KERNEL, rblock_kernel.KERNEL, front_kernel.KERNEL):
+    # launches: K5 from the VR path's float32 run, the others from the 2D path's
+    for k, launches in ((warp_kernel.KERNEL, counted["float32"]),
+                        (rblock_kernel.KERNEL, counted["float32"]),
+                        (front_kernel.KERNEL, counted["float32"]),
+                        (strip_warp_kernel.KERNEL, vr_counted)):
         cases = res[k.name]
         first = cases[0]              # the first case is the main-path shape in float32
         rows.append({"name": k.name, "route": "cuda", "source": k.source,
-                     "replaces": k.replaces, "launches": counted["float32"][k.name],
+                     "replaces": k.replaces, "launches": launches[k.name],
                      "max_abs_err": max(c["err"] for c in cases if c["dtype"] == torch.float32),
-                     "ms": first["ms"], "plain_ms": first["plain_ms"]})
+                     "ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                     "library_ms": first["library_ms"]})
     log(f"fps 1080p float32 {fps['float32']:.3f} bfloat16 {fps['bfloat16']:.3f}")
+    log(f"fps VR {VR_FACE}^2 faces float32 {vr_fps['float32']:.3f} "
+        f"({vr_fps['float32_no_png']:.3f} without PNG) bfloat16 {vr_fps['bfloat16']:.3f} "
+        f"({vr_fps['bfloat16_no_png']:.3f} without PNG)")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,15 +13,17 @@ conventions so the two can be compared like for like:
 Inside, convolutions run on NCHW views (channels-last memory, so an NHWC
 tensor permuted to NCHW costs no copy) and parameters are OIHW tensors.
 
-Every Pallas kernel on the streaming 2D path has a hand-written CUDA kernel
-for Hopper under ``csrc/`` (built at first use by ``ops/_build.py``). Each
+Every Pallas kernel on the ported paths (the streaming 2D stylizer and the
+spherical VR stylizer) has a hand-written CUDA kernel for Hopper under
+``csrc/`` (built at first use by ``ops/_build.py``). Each
 kernel wrapper runs its plain PyTorch version for a CPU tensor and launches
 the kernel, or raises, for a CUDA tensor — there is no fallback.
 
-The package imports ``torch`` and numpy and never ``jax``; it reuses the
-JAX package's jax-free modules (``core.io``, ``core.config``,
-``models.arch_dsl``, ``utils.pipeline``) and reads its weights from
-``fast_artistic_videos_tpu/assets/``.
+The package imports ``torch`` and numpy and never ``jax`` nor any module of
+the JAX package: it keeps its own copies of the JAX package's jax-free
+modules (``core.io``, ``core.config``, ``models.arch_dsl``,
+``utils.pipeline``, ``video.vr_geometry``) and only reads the JAX package's
+weight files from ``fast_artistic_videos_tpu/assets/``.
 """
 
 __version__ = "0.1.0"

@@ -21,8 +21,7 @@ import dataclasses
 
 import torch
 
-from fast_artistic_videos_tpu.core.config import StylizeOptions
-
+from ..core.config import StylizeOptions
 from ..models import checkpoint, stylizer
 from ..video.driver_video import VideoDriver, check_supported
 from ..video.engine import EngineConfig, StylizerEngine

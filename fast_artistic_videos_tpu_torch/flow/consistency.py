@@ -1,6 +1,6 @@
 """Forward/backward flow consistency check — counterpart of
-``fast_artistic_videos_tpu/flow/consistency.py`` (``consistency_mask`` and
-``consistency_mask_streaming``).
+``fast_artistic_videos_tpu/flow/consistency.py`` (``consistency_mask``,
+``consistency_mask_streaming`` and its batch form).
 
 Decision rules (consistencyChecker.cpp:80-134):
 
@@ -243,6 +243,26 @@ def consistency_mask_streaming(flow1, flow2, image=None, out_hw=None, rho: float
     if with_rel_maxabs:
         return mask / 255.0, rel_max
     return mask / 255.0
+
+
+@torch.no_grad()
+def consistency_mask_streaming_batch(flow1, flow2, images=None, out_hw=None,
+                                     rho: float = 3.0, band=None, warp_limit=None,
+                                     with_rel_maxabs: bool = False):
+    """:func:`consistency_mask_streaming` over N independent pairs: flow1 /
+    flow2 (N, H, W, 2), images (N, H, W, C) or None. Returns the (N, H', W')
+    masks, each item exactly as its own call (per-item structure
+    normalization), and with with_rel_maxabs one band-sizing signal: the
+    maximum over the whole batch."""
+    n = flow1.shape[0]
+    outs = [consistency_mask_streaming(
+        flow1[i], flow2[i], None if images is None else images[i], out_hw=out_hw,
+        rho=rho, band=band, warp_limit=warp_limit, with_rel_maxabs=with_rel_maxabs)
+        for i in range(n)]
+    if not with_rel_maxabs:
+        return torch.stack(outs)
+    return (torch.stack([m for m, _ in outs]),
+            torch.stack([r for _, r in outs]).max())
 
 
 @torch.no_grad()

@@ -1,7 +1,9 @@
 """Optical flow estimation with the compact PWC-style network — counterpart
 of ``fast_artistic_videos_tpu/flow/estimator.py`` (inference: feature
 pyramid, coarse-to-fine refinement with a radius-3 cost volume, the
-context head, and the streaming ``prep`` / ``refine_pair`` entry points).
+context head, the streaming ``prep`` / ``refine_pair`` entry points and
+their batch forms ``prep_batch`` / ``refine_pair_batch`` for the VR
+driver's six cube faces).
 
 Its convs are plain ``F.conv2d`` (the JAX package leaves them to XLA); the
 feature warps go through the banded warp, kernel K1 on CUDA. Activations
@@ -133,23 +135,27 @@ def refine(params, f1s, f2s, collect: bool = False, skip_finest: int = 0,
 
 
 def resize_bilinear(x, size):
-    """``jax.image.resize(..., "bilinear")`` of (H, W, C): half-pixel
-    centres, antialiased when shrinking, computed in float32 and returned
-    in x's dtype."""
-    h, w = x.shape[0], x.shape[1]
-    y = F.interpolate(x.float().permute(2, 0, 1)[None], size=tuple(size),
+    """``jax.image.resize(..., "bilinear")`` of (H, W, C) or (N, H, W, C)
+    over the two spatial axes: half-pixel centres, antialiased when
+    shrinking, computed in float32 and returned in x's dtype."""
+    single = x.ndim == 3
+    xb = x[None] if single else x
+    h, w = xb.shape[1], xb.shape[2]
+    y = F.interpolate(xb.float().permute(0, 3, 1, 2), size=tuple(size),
                       mode="bilinear", align_corners=False,
                       antialias=size[0] < h or size[1] < w)
-    return y[0].permute(1, 2, 0).to(x.dtype)
+    y = y.permute(0, 2, 3, 1).to(x.dtype)
+    return y[0] if single else y
 
 
 def _pad_edge(x, hp: int, wp: int):
-    h, w = x.shape[0], x.shape[1]
+    """Edge replication of (..., H, W, C) to (..., hp, wp, C)."""
+    h, w = x.shape[-3], x.shape[-2]
     if (hp, wp) == (h, w):
         return x
     rows = torch.arange(hp, device=x.device).clamp(max=h - 1)
     cols = torch.arange(wp, device=x.device).clamp(max=w - 1)
-    return x[rows][:, cols]
+    return x.index_select(-3, rows).index_select(-2, cols)
 
 
 def _scaled(h: int, w: int, flow_scale: float):
@@ -173,15 +179,21 @@ class FlowEstimator:
         """Feature pyramid (a tuple, finest first, batch 1) of one frame
         (H, W, 3) RGB uint8 or [0, 1] float, estimated at flow_scale
         resolution (resize, then edge-pad to a multiple of 16)."""
-        h, w = frame.shape[:2]
+        return self.prep_batch(frame[None], flow_scale)
+
+    @torch.no_grad()
+    def prep_batch(self, frames, flow_scale: float = 1.0):
+        """Batched :meth:`prep`: frames (N, H, W, 3) -> the pyramid tuple
+        with a leading batch axis (the VR driver's six faces at once)."""
+        h, w = frames.shape[1], frames.shape[2]
         hs, ws = _scaled(h, w, flow_scale)
         hp, wp = -(-hs // STRIDE) * STRIDE, -(-ws // STRIDE) * STRIDE
-        x = frame.to(self.device)
+        x = frames.to(self.device)
         x = x.to(self._dtype) / 255.0 if x.dtype == torch.uint8 else x.to(self._dtype)
         if (hs, ws) != (h, w):
             x = resize_bilinear(x, (hs, ws))
         x = _pad_edge(x, hp, wp)
-        return tuple(extract_pyramid(self.params, x[None]))
+        return tuple(extract_pyramid(self.params, x))
 
     @torch.no_grad()
     def refine_pair(self, feats_a, feats_b, out_hw, flow_scale: float = 1.0,
@@ -223,6 +235,33 @@ class FlowEstimator:
         if with_lowres:
             return up(low_ab), low_ab, low_ba, maxabs
         return up(low_ab), up(low_ba), maxabs
+
+
+    @torch.no_grad()
+    def refine_pair_batch(self, feats_a, feats_b, out_hw, flow_scale: float = 1.0,
+                          fast_check: bool = False):
+        """Both flow directions of N independent pairs at once (the batch
+        axis of :meth:`refine_pair` with ``with_lowres=True``). Returns
+        (flow_ab_full (N, H, W, 2), flow_ab_low, flow_ba_low, maxabs_low),
+        maxabs_low a 0-d device tensor over the whole batch (one band bucket
+        serves every stream)."""
+        h, w = out_hw
+        hs, ws = _scaled(h, w, flow_scale)
+        fa, fb = list(feats_a), list(feats_b)
+        if fast_check:
+            outs = refine(self.params, fa, fb, collect=True)
+            low_ab = _upsample2_flow(outs[-1])[:, :hs, :ws]
+            fab1 = outs[len(PYRAMID_CHANNELS) - 2]   # level-1 estimate
+            init = -warp_ops.bilinear_warp(fab1, -fab1, band=WARP_BAND)
+            low_ba = refine(self.params, fb, fa, init_flow=init, run_levels=1,
+                            skip_finest=1)[:, :hs, :ws]
+        else:
+            low_ab = refine(self.params, fa, fb)[:, :hs, :ws]
+            low_ba = refine(self.params, fb, fa)[:, :hs, :ws]
+        full = low_ab
+        if (hs, ws) != (h, w):
+            full = resize_bilinear(low_ab, (h, w)) / flow_scale
+        return full, low_ab, low_ba, low_ab.abs().max()
 
 
 def load_params(path: str, device="cpu") -> Params:

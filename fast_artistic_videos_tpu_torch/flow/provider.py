@@ -1,5 +1,6 @@
-"""Streaming flow provider — counterpart of
-``fast_artistic_videos_tpu/flow/provider.py`` (``StreamingFlowProvider``).
+"""Streaming flow providers — counterpart of
+``fast_artistic_videos_tpu/flow/provider.py`` (``StreamingFlowProvider``,
+and ``BatchedStreamingFlowProvider`` for the VR driver's six faces).
 
 For each consecutive frame pair: backward flow (frame i -> i-1), the
 cross-check direction and the consistency mask, all on the device. Each
@@ -117,3 +118,63 @@ class StreamingFlowProvider:
                 with_rel_maxabs=True)
         self._pending = _LateScalar(rel_max)
         return backward, cert
+
+
+class BatchedStreamingFlowProvider:
+    """Streaming flow for N synchronized temporal streams (the VR driver's
+    six cube faces, each its own stream, all advancing together): per step
+    one batched pyramid, one batched refine of both directions and the
+    flow-resolution consistency check of every pair.
+
+    Call it with frames (N, H, W, 3) (uint8 or [0, 1], on the estimator's
+    device); it returns a list of N (backward_flow, certainty) device-tensor
+    pairs, or None for the first step. The band bucket is shared by the
+    streams and sized from the previous step's maximum |flow| over the
+    check-passing pixels of the whole batch, read back without blocking."""
+
+    def __init__(self, params=None, device="cpu", use_structure: bool = True,
+                 flow_scale: float = 1.0, flow_estimator=None, dtype=None,
+                 fast_check: bool = False):
+        if flow_estimator is not None:
+            self.estimator = flow_estimator
+        else:
+            if params is None:
+                raise ValueError("need params or flow_estimator")
+            self.estimator = estimator.FlowEstimator(
+                params, dtype=dtype or torch.float32, device=device)
+        self.use_structure = use_structure
+        self.flow_scale = flow_scale
+        self.fast_check = fast_check
+        self._prev_feats = None
+        self._pending: Optional[_LateScalar] = None
+        self.last_band = None
+
+    def reset(self) -> None:
+        self._prev_feats = None
+        self._pending = None
+
+    @torch.no_grad()
+    def __call__(self, frames):
+        n, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+        feats = self.estimator.prep_batch(frames, self.flow_scale)
+        prev_feats, self._prev_feats = self._prev_feats, feats
+        if prev_feats is None:
+            return None
+        backward, bwd_low, fwd_low, maxabs = self.estimator.refine_pair_batch(
+            feats, prev_feats, (h, w), self.flow_scale, fast_check=self.fast_check)
+        # engine band = the plain bucket, consistency band = twice that (the
+        # check composes a round trip); out-of-band pixels are masked
+        prev = self._pending.get() if self._pending is not None else float(maxabs)
+        warp_low = flow_band(prev)
+        band = 2 * warp_low
+        if self.flow_scale != 1.0:
+            self.last_band = flow_band(warp_low / self.flow_scale)
+        else:
+            self.last_band = warp_low
+        limit_low = self.last_band * bwd_low.shape[1] / h
+        images = frames.to(backward.device) if self.use_structure else None
+        certs, rel_max = consistency.consistency_mask_streaming_batch(
+            bwd_low, fwd_low, images, out_hw=(h, w), band=band,
+            warp_limit=limit_low, with_rel_maxabs=True)
+        self._pending = _LateScalar(rel_max)
+        return [(backward[i], certs[i]) for i in range(n)]

@@ -16,7 +16,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from fast_artistic_videos_tpu.models.arch_dsl import LayerSpec, ModelSpec, parse_arch
+from .arch_dsl import LayerSpec, ModelSpec, parse_arch
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..", "..",
                       "fast_artistic_videos_tpu", "assets")

@@ -30,10 +30,9 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from fast_artistic_videos_tpu.models.arch_dsl import LayerSpec, ModelSpec
-
 from ..ops import front_kernel, rblock_kernel
 from ..ops._conv_in import eff_affine
+from .arch_dsl import LayerSpec, ModelSpec
 
 Params = Dict[str, Any]
 

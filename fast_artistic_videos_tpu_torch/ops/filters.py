@@ -1,5 +1,6 @@
-"""Spatial filters — counterpart of ``fast_artistic_videos_tpu/ops/filters.py``
-(``min_filter`` only: the occlusion erosion of the streaming path).
+"""Spatial filters — counterpart of ``fast_artistic_videos_tpu/ops/filters.py``:
+``min_filter`` (the occlusion erosion), ``median_filter`` and the gradient
+masks of the VR seam blend.
 
 ``min_filter`` is grayscale erosion with border-clipped windows
 (utils.lua:161-169): a separable pair of 1-D min passes whose +inf padding
@@ -35,3 +36,59 @@ def min_filter(x, size: int):
         raise ValueError(f"min_filter window must be odd (got {size})")
     h_ax = x.ndim - 3 if x.ndim >= 3 else x.ndim - 2
     return _min_pass(_min_pass(x, size, h_ax), size, h_ax + 1)
+
+
+def median_filter(x, size: int):
+    """Median over valid ``size`` x ``size`` windows; the output is
+    (..., H-size+1, W-size+1, C) (utils.lua:151-159), with the Torch median
+    convention: the (n-1)//2-th smallest (0-indexed) of n = size**2.
+
+    x: (..., H, W, C), or (H, W) which is filtered as one channel. Size 3
+    takes Paeth's median-of-9 exchange network (19 min/max pairs, exact);
+    other sizes sort the stacked window."""
+    if size <= 1:
+        return x
+    squeeze = x.ndim < 3
+    if squeeze:
+        x = x[..., None]
+    h_ax, w_ax = x.ndim - 3, x.ndim - 2
+    hh = x.shape[h_ax] - size + 1
+    ww = x.shape[w_ax] - size + 1
+    p = [x.narrow(h_ax, dy, hh).narrow(w_ax, dx, ww)
+         for dy in range(size) for dx in range(size)]
+    if size == 3:
+        def ex(i, j):
+            p[i], p[j] = torch.minimum(p[i], p[j]), torch.maximum(p[i], p[j])
+
+        ex(1, 2); ex(4, 5); ex(7, 8); ex(0, 1); ex(3, 4); ex(6, 7)  # noqa: E702
+        ex(1, 2); ex(4, 5); ex(7, 8); ex(0, 3); ex(5, 8); ex(4, 7)  # noqa: E702
+        ex(3, 6); ex(1, 4); ex(2, 5); ex(4, 7); ex(4, 2); ex(6, 4)  # noqa: E702
+        ex(4, 2)
+        med = p[4]
+    else:
+        k = (size * size - 1) // 2
+        med = torch.sort(torch.stack(p, dim=-1), dim=-1).values[..., k]
+    return med[..., 0] if squeeze else med
+
+
+# Linear gradient masks for VR seam blending (utils.lua:179-213): (H, W)
+# float32 ramps of i / (n + 1), values in (0, 1).
+
+def gradient_mask_h_inc(h: int, w: int):
+    ramp = torch.arange(1, h + 1, dtype=torch.float32) / (h + 1)
+    return ramp[:, None].expand(h, w)
+
+
+def gradient_mask_h_dec(h: int, w: int):
+    ramp = torch.arange(h, 0, -1, dtype=torch.float32) / (h + 1)
+    return ramp[:, None].expand(h, w)
+
+
+def gradient_mask_w_inc(h: int, w: int):
+    ramp = torch.arange(1, w + 1, dtype=torch.float32) / (w + 1)
+    return ramp[None, :].expand(h, w)
+
+
+def gradient_mask_w_dec(h: int, w: int):
+    ramp = torch.arange(w, 0, -1, dtype=torch.float32) / (w + 1)
+    return ramp[None, :].expand(h, w)

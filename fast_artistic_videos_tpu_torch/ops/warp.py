@@ -13,6 +13,7 @@ is exact where dy is locally constant and reads zero beyond the band.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import warp_kernel
@@ -72,6 +73,61 @@ def bilinear_warp(img, flow, band: int | None = None):
         f = f.expand(x.shape[0], *f.shape[1:])
     out = _warp_single(x, f) if band is None else _warp_banded_single(x, f, band)
     return out[0] if single else out
+
+
+def make_static_warp(map_np, sentinel: float = 9999.0):
+    """``bilinear_warp`` specialized for a precomputed host offset map that
+    maps only a sub-rectangle of the output (the VR border maps: sentinel
+    offsets everywhere but an overlap-wide strip; vr_helper.lua:3-92).
+
+    Once, on the host: the output bounding box of the mapped pixels and the
+    source bounding box their four taps can touch. The returned
+    ``warp(img)`` crops the source to that box, runs the exact gather for
+    the strip only and zero-pads back to the full frame: the same result as
+    ``bilinear_warp(img, map)`` (taps outside the image read zero). img is
+    (H, W, C) or (N, H, W, C); a batch shares the map."""
+    map_np = np.asarray(map_np, np.float32)
+    ho, wo = map_np.shape[:2]
+    mapped = np.all(np.abs(map_np) < sentinel / 2, axis=-1)
+    if not mapped.any():
+        def warp_none(img):
+            return img.new_zeros(tuple(img.shape[:-3]) + (ho, wo, img.shape[-1]))
+        return warp_none
+    rows = np.where(mapped.any(axis=1))[0]
+    cols = np.where(mapped.any(axis=0))[0]
+    y0, y1 = int(rows[0]), int(rows[-1]) + 1
+    x0, x1 = int(cols[0]), int(cols[-1]) + 1
+    sub = map_np[y0:y1, x0:x1]
+    sub_mapped = mapped[y0:y1, x0:x1]
+    # absolute source coordinates of the mapped pixels' top-left taps
+    gy = (np.arange(y0, y1, dtype=np.float64)[:, None] + sub[..., 1])[sub_mapped]
+    gx = (np.arange(x0, x1, dtype=np.float64)[None, :] + sub[..., 0])[sub_mapped]
+    sy0, sy1 = int(np.floor(gy.min())), int(np.floor(gy.max())) + 2
+    sx0, sx1 = int(np.floor(gx.min())), int(np.floor(gx.max())) + 2
+    # offsets relative to the cropped source and the cropped output
+    adj = sub.copy()
+    adj[..., 0] += (x0 - sx0)
+    adj[..., 1] += (y0 - sy0)
+    adj_t = torch.from_numpy(adj)
+
+    def warp(img):
+        single = img.ndim == 3
+        x = img[None] if single else img
+        h, w = x.shape[1], x.shape[2]
+        # clip the crop to the image (sentinel taps stay far out of bounds
+        # after the shift and keep reading zero)
+        ya, yb = max(sy0, 0), min(sy1, h)
+        xa, xb = max(sx0, 0), min(sx1, w)
+        m = adj_t.to(x.device)
+        if (ya, xa) != (sy0, sx0):
+            m = m + torch.tensor([sx0 - xa, sy0 - ya], dtype=m.dtype, device=m.device)
+        src = x[:, ya:yb, xa:xb]
+        strip = _warp_single(src, m[None].expand(x.shape[0], *m.shape))
+        out = strip.new_zeros((x.shape[0], ho, wo, x.shape[3]))
+        out[:, y0:y1, x0:x1] = strip
+        return out[0] if single else out
+
+    return warp
 
 
 def flow_band(max_abs_flow: float, minimum: int = 8) -> int:

@@ -20,11 +20,10 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from fast_artistic_videos_tpu.core import io
-from fast_artistic_videos_tpu.core.config import StylizeOptions, format_flow_name
-from fast_artistic_videos_tpu.utils import pipeline
-
+from ..core import io
+from ..core.config import StylizeOptions, format_flow_name
 from ..ops import warp
+from ..utils import pipeline
 from .engine import StylizerEngine
 
 NOT_PORTED = "not carried by the PyTorch port yet (see ROADMAP.md)"

@@ -1,6 +1,6 @@
 """The prior-conditioned stylization engine — counterpart of
-``fast_artistic_videos_tpu/video/engine.py`` (``stylize_first`` and
-``stylize_next``).
+``fast_artistic_videos_tpu/video/engine.py`` (``stylize_first``,
+``stylize_next`` and the VR driver's ``stylize_with_prior``).
 
 Per frame: certainty erosion, flow warp of the previous stylized frame
 (kernel K1 on CUDA for the banded warp), masking, occlusion fill, the
@@ -111,7 +111,9 @@ class StylizerEngine:
         prior = prior + self._fill(cert3, (1, h, w, 3))
         return torch.cat([c, prior, cert1], dim=-1)
 
-    def _stylize_with_prior(self, content, prior_rgb, cert):
+    def _stylize_with_prior(self, content, prior_rgb, cert, erode: bool = False):
+        if erode:
+            cert = filters.min_filter(cert, self.config.occlusions_min_filter)
         y = self._run_model("vid", self._assemble(content, prior_rgb, cert))
         return torch.clamp(vgg_deprocess(y[0]), 0.0, 1.0).float()
 
@@ -181,3 +183,16 @@ class StylizerEngine:
         if emit_u8:
             return out, _quantize_u8(out)
         return out
+
+    @torch.no_grad()
+    def stylize_with_prior(self, content, prior_rgb, cert, erode_cert: bool = True):
+        """VR-style entry: the caller assembles the prior image (the cube
+        faces' border priors); the certainty is eroded here unless
+        erode_cert is False. Pads to the stride multiple, unpads the
+        result."""
+        content, (h, w) = self._pad(content)
+        prior_rgb, _ = self._pad(prior_rgb)
+        cert, _ = self._pad(cert, mode="constant")   # padded area = occluded
+        out = self._stylize_with_prior(content, prior_rgb.float(), cert.float(),
+                                       erode=erode_cert)
+        return out[:h, :w]

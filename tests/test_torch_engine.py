@@ -20,17 +20,17 @@ from fast_artistic_videos_tpu_torch.models import stylizer as tsty
 from fast_artistic_videos_tpu_torch.ops import filters as tfilters
 from fast_artistic_videos_tpu_torch.ops.preprocess import VGG_MEAN_BGR
 from fast_artistic_videos_tpu_torch.video import engine as teng
-from tests.test_torch_stylizer import numpy_params
+from tests.test_torch_stylizer import numpy_params, parse_both
 
 
 @pytest.fixture(scope="module")
 def engines():
     spec, pj, _ = jckpt.load_model("demo")
-    _, pt, _ = tckpt.load_model("demo")
+    tspec, pt, _ = tckpt.load_model("demo")
     je = jeng.StylizerEngine(lambda p, x: jsty.apply(p, spec, x), pj,
                              stride_multiple=spec.total_stride)
-    te = teng.StylizerEngine(lambda p, x: tsty.apply(p, spec, x), pt,
-                             stride_multiple=spec.total_stride)
+    te = teng.StylizerEngine(lambda p, x: tsty.apply(p, tspec, x), pt,
+                             stride_multiple=tspec.total_stride)
     return je, te
 
 
@@ -88,17 +88,15 @@ def test_recurrence_on_device_tensors(engines):
 
 def test_image_model_first_frame_matches_jax():
     """--model_img: frame 1 goes through a separate 3-channel image model."""
-    from fast_artistic_videos_tpu.models import arch_dsl
-
     spec_v, pj, _ = jckpt.load_model("demo")
-    _, pt, _ = tckpt.load_model("demo")
-    spec_i = arch_dsl.parse_arch("c9s1-8,d16,R16,u8,c9s1-3", in_channels=3)
+    tspec_v, pt, _ = tckpt.load_model("demo")
+    spec_i, tspec_i = parse_both("c9s1-8,d16,R16,u8,c9s1-3", in_channels=3)
     pij = numpy_params(spec_i, 8)
     pit = tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pij))
     je = jeng.StylizerEngine(lambda p, x: jsty.apply(p, spec_v, x), pj,
                              lambda p, x: jsty.apply(p, spec_i, x), pij)
-    te = teng.StylizerEngine(lambda p, x: tsty.apply(p, spec_v, x), pt,
-                             lambda p, x: tsty.apply(p, spec_i, x), pit)
+    te = teng.StylizerEngine(lambda p, x: tsty.apply(p, tspec_v, x), pt,
+                             lambda p, x: tsty.apply(p, tspec_i, x), pit)
     content, _, _, _ = _inputs(7, 48, 64)
     want = je.stylize_first(content)
     got = te.stylize_first(content)

@@ -11,12 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from fast_artistic_videos_tpu.models import arch_dsl, checkpoint as jckpt
+from fast_artistic_videos_tpu.models import checkpoint as jckpt
 from fast_artistic_videos_tpu.models import stylizer as jsty
 from fast_artistic_videos_tpu_torch.models import checkpoint as tckpt
 from fast_artistic_videos_tpu_torch.models import stylizer as tsty
 from fast_artistic_videos_tpu_torch.ops import front_kernel
-from tests.test_torch_stylizer import jax_apply, numpy_params
+from tests.test_torch_stylizer import jax_apply, numpy_params, parse_both
 
 
 def _params(pj):
@@ -30,7 +30,7 @@ def _close(got, want, rtol):
 @pytest.mark.parametrize("arch,hw", [("c9s1-8,d16,d32,R32,u16,u8,c9s1-3", (40, 56)),
                                      ("c5s1-16,d16,d32,R32,u16,u8,c9s1-3", (44, 36))])
 def test_front_matches_jax_phase_front(arch, hw):
-    spec = arch_dsl.parse_arch(arch, in_channels=7)
+    spec, tspec = parse_both(arch, in_channels=7)
     pj = numpy_params(spec, 2)
     pt = _params(pj)
     x = (np.random.default_rng(2).standard_normal((1, *hw, 7)) * 60).astype(np.float32)
@@ -38,7 +38,7 @@ def test_front_matches_jax_phase_front(arch, hw):
         jnp.asarray(x), pj["layer00"], spec.layers[0], pj["layer00_norm"],
         pj["layer01"], pj["layer01_norm"], pj["layer02"], interpret=True)
     z_t, st_t, cnt_t = tsty.front_layers(
-        torch.from_numpy(x), pt["layer00"], spec.layers[0], pt["layer00_norm"],
+        torch.from_numpy(x), pt["layer00"], tspec.layers[0], pt["layer00_norm"],
         pt["layer01"], pt["layer01_norm"], pt["layer02"])
     assert cnt_t == cnt_j
     assert tuple(z_t.shape) == z_j.shape == (1, hw[0] // 4, hw[1] // 4, 32)
@@ -67,9 +67,10 @@ def test_demo_apply_kernel_path_matches_jax_full_front():
     Pallas front and chain themselves are held against the port above and
     in test_torch_rblock.py."""
     spec, pj, _ = jckpt.load_model("demo")
+    tspec = tckpt.load_model("demo")[0]
     pt = _params(pj)
     x = (np.random.default_rng(4).standard_normal((1, 48, 64, 7)) * 60).astype(np.float32)
     want = np.asarray(jax_apply(pj, spec, x))
-    got = tsty.apply(pt, spec, torch.from_numpy(x), fused=True).numpy()
+    got = tsty.apply(pt, tspec, torch.from_numpy(x), fused=True).numpy()
     assert np.abs(got - want).max() / 255.0 < 1e-3
 

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 banded warp, K2 chain conv, K3 front conv)
-against their plain PyTorch versions on a card, and the stylizer's kernel
+"""The port's CUDA kernels (K1 banded warp, K2 chain conv, K3 front conv,
+K5 strip warp) against their plain PyTorch versions on a card, and the stylizer's kernel
 path against its plain (cuDNN) path. Needs a CUDA card: every test skips
 without one. This file imports no jax, so on the card host it runs alone:
 
@@ -14,6 +14,8 @@ import torch
 
 from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
 from fast_artistic_videos_tpu_torch.ops import front_kernel, rblock_kernel, warp_kernel
+from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
+from fast_artistic_videos_tpu_torch.video import vr_geometry as vr
 
 pytestmark = pytest.mark.gpu
 
@@ -84,6 +86,34 @@ def test_front_conv_kernel_matches_plain(cuda, k, stride, pad, cin, cout):
         assert ((g - ref).norm() / ref.norm()).item() <= 1e-4
 
 
+def _vr_maps(face, overlap):
+    return [vr.perspective_warp_map_left(face, overlap, face),
+            vr.perspective_warp_map_right(face, overlap, face),
+            vr.perspective_warp_map_top(face, overlap, face),
+            vr.perspective_warp_map_bottom(face, overlap, face)]
+
+
+@pytest.mark.parametrize("face,overlap", [(64, 16), (200, 28)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [None, 3])
+def test_strip_warp_kernel_matches_plain(cuda, face, overlap, dtype, batch):
+    """K5 on the four VR border maps, one image or a batch sharing the map,
+    against its plain version on the same (dtype-rounded) input: the
+    kernel and the plain version read the same taps and weights and compute
+    in float32, so they agree to float32 rounding (1e-5)."""
+    rng = np.random.default_rng(6)
+    shape = (face, face, 3) if batch is None else (batch, face, face, 3)
+    img = _t(rng.random(shape), cuda, dtype)
+    for m in _vr_maps(face, overlap):
+        fn = strip_warp_kernel.make_static_strip_warp(m)
+        before = strip_warp_kernel.KERNEL.launches
+        got = fn(img)
+        assert strip_warp_kernel.KERNEL.launches == before + 1
+        want = fn.plain(img)
+        assert got.dtype == torch.float32 and got.shape == want.shape == shape
+        assert (got - want).abs().max().item() <= 1e-5
+
+
 def test_stylizer_kernel_path_matches_plain_path(cuda):
     spec, params, _ = checkpoint.load_model("demo", cuda)
     x = _t(np.random.default_rng(4).standard_normal((1, 96, 128, 7)) * 60, cuda)
@@ -111,10 +141,15 @@ def test_kernels_launch_on_the_tensors_card(cuda):
     wt = _t(rng.standard_normal((32, 32, 3, 3)) / 17, dev)
     b = _t(rng.standard_normal(32) * 0.1, dev)
 
+    face = _t(rng.random((40, 40, 3)), dev)
+    strip = strip_warp_kernel.make_static_strip_warp(_vr_maps(40, 12)[2])
+
     def check():
         got = warp_kernel.warp_banded(img, flow, 8)
         want = warp_kernel.warp_banded_plain(img, flow, 8)
         assert (got - want).abs().max().item() <= 1e-5
+        # K5's tables are uploaded to the card of the first call's tensor
+        assert (strip(face) - strip.plain(face)).abs().max().item() <= 1e-5
         for g, ref in zip(rblock_kernel.chain_conv(x, wt, b),
                           rblock_kernel.chain_conv_plain(x, wt, b)):
             assert ((g - ref).norm() / ref.norm()).item() <= 1e-4
@@ -141,6 +176,9 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     x = torch.zeros(1, 8, 8, 3, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         warp_kernel.warp_banded(x, torch.zeros(1, 8, 8, 2, device=cuda), 8)
+    strip = strip_warp_kernel.make_static_strip_warp(_vr_maps(32, 8)[0])
+    with pytest.raises(TypeError):
+        strip(x)
     with pytest.raises(ValueError):
         rblock_kernel.chain_conv(torch.zeros(8, 8, 4, device=cuda),
                                  torch.zeros(4, 5, 3, 3, device=cuda),

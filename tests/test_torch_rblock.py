@@ -17,7 +17,7 @@ from fast_artistic_videos_tpu.ops import rblock_pallas as rbp
 from fast_artistic_videos_tpu_torch.models import checkpoint as tckpt
 from fast_artistic_videos_tpu_torch.models import stylizer as tsty
 from fast_artistic_videos_tpu_torch.ops import rblock_kernel
-from tests.test_torch_stylizer import jax_apply, numpy_params
+from tests.test_torch_stylizer import jax_apply, numpy_params, parse_both
 
 H_IN, W_IN, C = 14, 19, 8
 
@@ -120,11 +120,11 @@ def test_fused_res_chain_matches_jax():
 def test_apply_fused_chain_matches_jax_fused_rblocks():
     """Port apply with the kernels on (CPU: their plain versions) against
     the JAX package's apply(fused_rblocks=True)."""
-    spec = arch_dsl.parse_arch(ARCH, in_channels=7)
+    spec, tspec = parse_both(ARCH, in_channels=7)
     pj = numpy_params(spec, 6)
     pt = tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj))
     x = (np.random.default_rng(6).standard_normal((1, 32, 40, 7)) * 60).astype(np.float32)
     want = np.asarray(jax_apply(pj, spec, x, fused_rblocks=True))
-    got = tsty.apply(pt, spec, torch.from_numpy(x), fused=True).numpy()
+    got = tsty.apply(pt, tspec, torch.from_numpy(x), fused=True).numpy()
     assert np.abs(got - want).max() / 255.0 < 1e-3
 

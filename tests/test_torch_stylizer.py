@@ -4,6 +4,7 @@ arch token and padding type. Inputs are made with numpy from a seed; float32
 outputs agree within 1e-3 after deprocessing (/255), bfloat16 within 1e-2
 mean-abs."""
 
+import dataclasses
 import os
 
 import jax
@@ -14,8 +15,20 @@ import torch
 
 from fast_artistic_videos_tpu.models import arch_dsl, checkpoint as jckpt
 from fast_artistic_videos_tpu.models import stylizer as jsty
+from fast_artistic_videos_tpu_torch.models import arch_dsl as tarch
 from fast_artistic_videos_tpu_torch.models import checkpoint as tckpt
 from fast_artistic_videos_tpu_torch.models import stylizer as tsty
+
+
+def parse_both(arch, **kw):
+    """The same arch string parsed by the JAX package's parser and by the
+    port's own copy of it: (JAX spec, port spec)."""
+    return arch_dsl.parse_arch(arch, **kw), tarch.parse_arch(arch, **kw)
+
+
+def same_spec(a, b) -> bool:
+    """A JAX spec and a port spec describe the same network."""
+    return dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
 def numpy_params(spec, seed):
@@ -56,10 +69,10 @@ def _to_torch(params_jax):
     return tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, params_jax))
 
 
-def _run_both(spec, params_jax, x, dtype=None, **tkw):
+def _run_both(spec, tspec, params_jax, x, dtype=None, **tkw):
     want = jax_apply(params_jax, spec, x,
                      dtype=jnp.bfloat16 if dtype == torch.bfloat16 else None)
-    got = tsty.apply(_to_torch(params_jax), spec, torch.from_numpy(x), dtype=dtype, **tkw)
+    got = tsty.apply(_to_torch(params_jax), tspec, torch.from_numpy(x), dtype=dtype, **tkw)
     return got.float().numpy(), np.asarray(want, np.float32)
 
 
@@ -69,23 +82,26 @@ def _vgg_input(rng, n, h, w, c=7):
 
 def test_demo_checkpoint_f32():
     spec, params, _ = jckpt.load_model("demo")
+    tspec = tckpt.load_model("demo")[0]
     x = _vgg_input(np.random.default_rng(0), 1, 48, 64)
-    got, want = _run_both(spec, params, x)
+    got, want = _run_both(spec, tspec, params, x)
     assert got.shape == want.shape == (1, 48, 64, 3)
     assert np.abs(got - want).max() / 255.0 < 1e-3
 
 
 def test_demo_checkpoint_bf16():
     spec, params, _ = jckpt.load_model("demo")
+    tspec = tckpt.load_model("demo")[0]
     x = _vgg_input(np.random.default_rng(1), 1, 48, 56)
-    got, want = _run_both(spec, params, x, dtype=torch.bfloat16)
+    got, want = _run_both(spec, tspec, params, x, dtype=torch.bfloat16)
     assert np.abs(got - want).mean() / 255.0 < 1e-2
 
 
 def test_port_loader_matches_jax_loader():
     spec_j, params_j, meta_j = jckpt.load_model("demo")
     spec_t, params_t, meta_t = tckpt.load_model("demo")
-    assert spec_t == spec_j and meta_t == meta_j
+    assert isinstance(spec_t, tarch.ModelSpec)
+    assert same_spec(spec_t, spec_j) and meta_t == meta_j
     w_j = np.asarray(params_j["layer00"]["w"])                  # HWIO
     np.testing.assert_array_equal(params_t["layer00"]["w"].numpy(),
                                   w_j.transpose(3, 2, 0, 1))    # OIHW
@@ -93,8 +109,8 @@ def test_port_loader_matches_jax_loader():
 
 def test_explicit_layers_meta(tmp_path):
     """A checkpoint whose meta lists its layers (the t7-import form)."""
-    spec = arch_dsl.parse_arch("c3s1-8,d8,R8,u8,c3s1-3", in_channels=7,
-                               padding_type="zero")
+    spec, tspec = parse_both("c3s1-8,d8,R8,u8,c3s1-3", in_channels=7,
+                             padding_type="zero")
     params = numpy_params(spec, 3)
     meta = {"layers": [dict(vars(l)) for l in spec.layers], "in_channels": 7,
             "padding_type": "zero", "use_instance_norm": True,
@@ -102,7 +118,7 @@ def test_explicit_layers_meta(tmp_path):
     path = os.path.join(tmp_path, "m.npz")
     jckpt.save_model(path, params, meta)
     spec_t, params_t, _ = tckpt.load_model(path)
-    assert spec_t == jckpt.load_model(path)[0]
+    assert spec_t == tspec and same_spec(spec_t, jckpt.load_model(path)[0])
     x = _vgg_input(np.random.default_rng(3), 1, 16, 20)
     got = tsty.apply(params_t, spec_t, torch.from_numpy(x)).numpy()
     want = np.asarray(jax_apply(params, spec, x))
@@ -142,25 +158,25 @@ def test_random_specs_f32(seed):
     padding = PADDINGS[seed % len(PADDINGS)]
     arch = _random_arch(rng)
     use_in = seed != 5                         # one batch-norm spec
-    spec = arch_dsl.parse_arch(arch, in_channels=7, padding_type=padding,
-                               use_instance_norm=use_in)
+    spec, tspec = parse_both(arch, in_channels=7, padding_type=padding,
+                             use_instance_norm=use_in)
     params = numpy_params(spec, seed)
     size = 12 * spec.total_stride
     n = 2 if seed % 3 == 0 else 1
     x = _vgg_input(rng, n, size, size + 4 * spec.total_stride)
-    got, want = _run_both(spec, params, x)
+    got, want = _run_both(spec, tspec, params, x)
     assert got.shape == want.shape, (arch, padding)
     assert np.abs(got - want).max() / 255.0 < 1e-3, (arch, padding)
 
 
 def test_stop_after_start_at_compose():
-    spec = arch_dsl.parse_arch("c9s1-8,d16,d16,R16,R16,u8,u8,c9s1-3", in_channels=7)
+    spec, tspec = parse_both("c9s1-8,d16,d16,R16,R16,u8,u8,c9s1-3", in_channels=7)
     pj = numpy_params(spec, 5)
     params = _to_torch(pj)
     x = torch.from_numpy(_vgg_input(np.random.default_rng(5), 1, 24, 32))
-    full = tsty.apply(params, spec, x)
-    mid = tsty.apply(params, spec, x, stop_after=3)
-    rest = tsty.apply(params, spec, mid, start_at=4)
+    full = tsty.apply(params, tspec, x)
+    mid = tsty.apply(params, tspec, x, stop_after=3)
+    rest = tsty.apply(params, tspec, mid, start_at=4)
     torch.testing.assert_close(rest, full, rtol=0, atol=1e-4)
     want_mid = jax_apply(pj, spec, x.numpy(), stop_after=3)
     np.testing.assert_allclose(mid.numpy(), np.asarray(want_mid), rtol=1e-4, atol=1e-3)

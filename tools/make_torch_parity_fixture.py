@@ -1,8 +1,14 @@
-"""Write tests/fixtures/torch_parity_demo.npz: a seeded synthetic pan and the
-JAX package's CLI output for it, the reference the PyTorch port is held to
-on a card (chip_smoke.py) and on the CPU (tests/test_torch_cli.py).
+"""Write the fixtures the PyTorch port is held to on a card (chip_smoke.py)
+and on the CPU (tests/test_torch_cli.py, tests/test_torch_vr.py): seeded
+synthetic pans and the JAX package's CLI outputs for them.
 
-The JAX CLI runs on the CPU with the bundled demo model and flow estimator
+  * tests/fixtures/torch_parity_demo.npz: the 2D CLI (stylize_video) on a
+    5-frame 96x128 pan;
+  * tests/fixtures/torch_parity_vr.npz: the VR CLI (stylize_vr_video) on 3
+    frames of 6 cube faces of 64x64 px, overlap 16: six pan streams, one per
+    face, cut side by side from one wide pan.
+
+The JAX CLIs run on the CPU with the bundled demo model and flow estimator
 (--model_vid demo --flow_model bundled --flow_scale 0.5, float32).
 
   JAX_PLATFORMS=cpu python tools/make_torch_parity_fixture.py
@@ -18,10 +24,16 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "fixtures", "torch_parity_demo.npz")
+OUT_VR = os.path.join(ROOT, "tests", "fixtures", "torch_parity_vr.npz")
 
 SEED = 20261016
 FRAMES, H, W = 5, 96, 128
 STEP = (3, 2)            # pan per frame (dx, dy) in pixels
+VR_SEED = 20261017
+VR_FRAMES, VR_FACE, VR_OVERLAP = 3, 64, 16
+VR_STEP = (4, 1)
+VR_ARGS = ["--model_vid", "demo", "--flow_model", "bundled", "--flow_scale", "0.5",
+           "--overlap_pixel_w", str(VR_OVERLAP), "--overlap_pixel_h", str(VR_OVERLAP)]
 
 
 def pan_frames(seed: int, n: int, h: int, w: int, step=STEP) -> np.ndarray:
@@ -59,7 +71,47 @@ def run_jax_cli(frames: np.ndarray, workdir: str) -> np.ndarray:
                      for t in range(1, len(frames) + 1)])
 
 
-def main():
+def vr_faces(seed: int = VR_SEED, n: int = VR_FRAMES, face: int = VR_FACE,
+             step=VR_STEP) -> np.ndarray:
+    """(n, 6, face, face, 3) uint8: frame t's six faces (face numbers 1..6
+    at index 0..5), cut side by side from one pan 6 faces wide."""
+    pans = pan_frames(seed, n, face, 6 * face, step)
+    return np.stack([np.stack([p[:, k * face:(k + 1) * face] for k in range(6)])
+                     for p in pans])
+
+
+def write_vr_faces(faces: np.ndarray, workdir: str) -> str:
+    """Write the faces as f%04d_%d.ppm (frame, face number); returns the
+    input pattern."""
+    from fast_artistic_videos_tpu.core import io
+
+    for t, frame in enumerate(faces, 1):
+        for k, img in enumerate(frame, 1):
+            io.write_ppm(os.path.join(workdir, f"f{t:04d}_{k}.ppm"), img)
+    return os.path.join(workdir, "f%04d_%d.ppm")
+
+
+def read_vr_outputs(prefix: str, n: int) -> np.ndarray:
+    """(n, 6, H, W, 3) uint8 output faces, index 1 = processing position."""
+    from fast_artistic_videos_tpu.core import io
+
+    return np.stack([np.stack([io.load_image_u8(f"{prefix}{t}_{pos}.png")
+                               for pos in range(6)]) for t in range(1, n + 1)])
+
+
+def run_jax_vr_cli(faces: np.ndarray, workdir: str) -> np.ndarray:
+    """The JAX VR CLI's uint8 output faces for `faces` (the zero-download
+    path)."""
+    from fast_artistic_videos_tpu.cli import stylize_vr_video
+
+    prefix = os.path.join(workdir, "out", "o")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    stylize_vr_video.main(["--input_pattern", write_vr_faces(faces, workdir),
+                           "--output_prefix", prefix, *VR_ARGS])
+    return read_vr_outputs(prefix, len(faces))
+
+
+def write_demo():
     frames = pan_frames(SEED, FRAMES, H, W)
     with tempfile.TemporaryDirectory() as d:
         outputs = run_jax_cli(frames, d)
@@ -67,6 +119,21 @@ def main():
     np.savez_compressed(OUT, seed=np.int64(SEED), step=np.asarray(STEP),
                         frames=frames, outputs=outputs)
     print(f"wrote {OUT} ({os.path.getsize(OUT)} bytes)")
+
+
+def write_vr():
+    faces = vr_faces()
+    with tempfile.TemporaryDirectory() as d:
+        outputs = run_jax_vr_cli(faces, d)
+    os.makedirs(os.path.dirname(OUT_VR), exist_ok=True)
+    np.savez_compressed(OUT_VR, seed=np.int64(VR_SEED), step=np.asarray(VR_STEP),
+                        overlap=np.int64(VR_OVERLAP), faces=faces, outputs=outputs)
+    print(f"wrote {OUT_VR} ({os.path.getsize(OUT_VR)} bytes)")
+
+
+def main():
+    write_demo()
+    write_vr()
     return 0
 
 
