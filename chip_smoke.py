@@ -25,7 +25,22 @@ Phases (any failure exits non-zero, before the result line is printed):
      through the kernels against the plain versions;
   7. the port's VR CLI on the card against the JAX package's committed VR
      CLI output (tests/fixtures/torch_parity_vr.npz), mean-abs <= 1e-2 per
-     face.
+     face;
+  8. the batched path: --create_inconsistent --inconsistent_batch 4 on 8 of
+     the 1080p pan frames, float32 then bfloat16, with exact launch counts
+     (K4 20, the other kernels 0), finite outputs, fps with and without PNG
+     encoding, and the batched frames against the same frames stylized one
+     at a time through K3 and K2 (mean-abs <= 1e-2);
+  9. feature reuse (--feature_reuse 3) on the 12 pan frames, float32, with
+     exact K1/K2/K3 counts, frames 1-2 within one uint8 step of phase 4's
+     exact run and the reuse frames within mean-abs 0.05 of it (the JAX
+     package's bound on how far the reuse approximation drifts from the
+     exact run, not a correctness check: phase 10 holds the reuse mode
+     against the JAX CLI), fps with and without PNG; then --scale_factor
+     0.5 (outputs at full size, finite);
+ 10. the port CLI on the card against the JAX package's committed outputs of
+     its other modes (tests/fixtures/torch_parity_batch.npz: batched,
+     feature reuse, scale 0.5, phase-resident), mean-abs <= 1e-2 per frame.
 
 The last lines of standard output are the card's name and power limit, a
 JSON line with one row per kernel (name, route, source, the TPU kernel it
@@ -118,6 +133,15 @@ def bound(nbytes, flops, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _kernels():
+    """{name: Kernel} of every hand-written kernel (K1-K5)."""
+    from fast_artistic_videos_tpu_torch.ops import (conv_kernel, front_kernel, rblock_kernel,
+                                                    strip_warp_kernel, warp_kernel)
+
+    return {k.name: k for k in (warp_kernel.KERNEL, rblock_kernel.KERNEL, front_kernel.KERNEL,
+                                conv_kernel.KERNEL, strip_warp_kernel.KERNEL)}
+
+
 def _dname(torch, dtype):
     return "bfloat16" if dtype == torch.bfloat16 else "float32"
 
@@ -134,7 +158,7 @@ def check_kernels(torch):
     dev = "cuda"
     res = {"warp_banded": [], "front_conv": [], "res_chain_conv": []}
 
-    def warp_case(shape, band, dtype, tol):
+    def warp_case(shape, band, dtype, tol, library=False):
         img = torch.rand(shape, generator=g).to(dev, dtype)
         flow = ((torch.rand(shape[:3] + (2,), generator=g) * 2 - 1) * band * 1.2).to(dev)
         got = warp_kernel.warp_banded(img, flow, band)
@@ -148,17 +172,29 @@ def check_kernels(torch):
         nel = img.numel()
         b_ms, b_by = bound(2 * nel * img.element_size() + flow.numel() * 4, 12 * nel,
                            _dname(torch, dtype))
+        lib_ms, lib_txt = None, ""
+        if library:
+            # the yardstick: grid_sample's exact bilinear warp (zero padding,
+            # align_corners), which the banded two-pass form approximates
+            n, h, w = shape[:3]
+            ys = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1)
+            xs = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w)
+            grid = torch.stack([(xs + flow[..., 0]) * 2 / (w - 1) - 1,
+                                (ys + flow[..., 1]) * 2 / (h - 1) - 1], -1)
+            src = img.permute(0, 3, 1, 2)
+            lib_ms = _time_ms(torch, lambda: torch.nn.functional.grid_sample(
+                src, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+            lib_txt = f" grid_sample {lib_ms:.4f} ms"
         log(f"K1 warp {tuple(shape)} band {band} {dtype}: max_abs_err {err:.3g} "
-            f"(tol {tol:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"(tol {tol:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib_txt} "
             f"bound {b_ms:.4f} ms ({b_by})")
         if not err <= tol:
             raise AssertionError(f"K1 warp {shape} band {band} {dtype}: err {err}")
-        # no single PyTorch call computes the banded two-pass approximation
         res["warp_banded"].append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype,
-                                       bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
 
     f32, bf16 = torch.float32, torch.bfloat16
-    warp_case((1, 1080, 1920, 3), 16, f32, 1e-5)       # engine prior warp
+    warp_case((1, 1080, 1920, 3), 16, f32, 1e-5, library=True)   # engine prior warp
     warp_case((1, 1080, 1920, 3), 32, f32, 1e-5)
     warp_case((1, 1080, 1920, 3), 16, bf16, 2 ** -7)
     warp_case((1, 540, 960, 2), 32, f32, 1e-5)         # consistency sample
@@ -231,7 +267,53 @@ def check_kernels(torch):
         conv_case(K2, 288, 498, 128, 128, 3, 1, 0, True, True, False, False, dtype)
         conv_case(K2, 282, 492, 128, 128, 3, 1, 0, True, False, True, True, dtype)
     res["strip_warp"] = check_strip_warp(torch, g)
+    res["conv3x3"] = check_block_conv(torch, g)
     return res
+
+
+def check_block_conv(torch, g):
+    """K4 against its plain version: the batched 1080p residual-block conv
+    (4, 290, 500, 128) -> 128 VALID in float32 and bfloat16, and a SAME
+    (pad 1) conv widening to 256 with the ReLU epilogue. Relative L2
+    <= 1e-4 float32, <= 1e-2 bfloat16 (the conv_case tolerances); the
+    library yardstick is F.conv2d (cuDNN) on the same NHWC data."""
+    from fast_artistic_videos_tpu_torch.ops import conv_kernel
+
+    out = []
+    for n, h, w, cin, cout, same, relu, dtype in (
+            (4, 290, 500, 128, 128, False, False, torch.float32),
+            (4, 290, 500, 128, 128, False, False, torch.bfloat16),
+            (2, 64, 96, 128, 256, True, True, torch.float32),
+            (2, 64, 96, 128, 256, True, True, torch.bfloat16)):
+        x = torch.randn(n, h, w, cin, generator=g).to("cuda", dtype)
+        wt = (torch.randn(cout, cin, 3, 3, generator=g) / (9 * cin) ** 0.5).cuda()
+        b = (torch.randn(cout, generator=g) * 0.1).cuda()
+        pad = 1 if same else 0
+        fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
+        got = fn(x, wt, b, relu)
+        want = conv_kernel.conv3x3_plain(x, wt, b, relu, pad)
+        torch.cuda.synchronize()
+        y, yp = got.float(), want.float()
+        rel = ((y - yp).norm() / yp.norm()).item()
+        err = (y - yp).abs().max().item()
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        ms = _time_ms(torch, lambda: fn(x, wt, b, relu))
+        plain_ms = _time_ms(torch, lambda: conv_kernel.conv3x3_plain(x, wt, b, relu, pad))
+        xc, wc, bc = x.permute(0, 3, 1, 2), wt.to(dtype), b.to(dtype)
+        lib_ms = _time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, bc, 1, pad))
+        esz = x.element_size()
+        nbytes = (x.numel() + y.numel() + wt.numel()) * esz + b.numel() * 4
+        flops = 2 * y.shape[0] * y.shape[1] * y.shape[2] * cout * cin * 9
+        b_ms, b_by = bound(nbytes, flops, _dname(torch, dtype))
+        log(f"K4 block conv ({n},{h},{w},{cin})->{cout} {'SAME' if same else 'VALID'} "
+            f"relu={relu} {dtype}: rel_l2 {rel:.3g} max_abs {err:.3g} (tol {tol:g}) "
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms conv2d {lib_ms:.3f} ms "
+            f"bound {b_ms:.3f} ms ({b_by}, {flops / 1e9:.1f} GFLOP)")
+        if not rel <= tol:
+            raise AssertionError(f"K4 ({n},{h},{w},{cin})->{cout} {dtype}: rel {rel}")
+        out.append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms))
+    return out
 
 
 def check_strip_warp(torch, g):
@@ -314,21 +396,26 @@ def _options(pattern, prefix, dtype, frames):
 
 def _drive(torch, opt, record=None, write=True):
     """One CLI main-path run through the CLI's build functions; returns
-    (results, seconds on CUDA events). write=False skips the PNG encoding
-    (the writer thread still downloads every uint8 frame)."""
+    (results, seconds on CUDA events). record collects every stylized frame
+    the engine returns. write=False skips the PNG encoding (the writer
+    thread still downloads every uint8 frame)."""
     from fast_artistic_videos_tpu_torch.cli import stylize_video as cli
     from fast_artistic_videos_tpu_torch.video.driver_video import VideoDriver
 
     device = cli.resolve_device("cuda")
     engine = cli.build_engine(opt, device)
-    provider = cli.build_flow_provider(opt, device)
+    provider = cli.build_flow_provider(opt, device) if opt.flow_model else None
     if record is not None:
-        for name in ("stylize_first", "stylize_next"):
+        for name in ("stylize_first", "stylize_next", "stylize_next_full",
+                     "stylize_next_reuse", "stylize_batch"):
             fn = getattr(engine, name)
 
-            def wrapped(*a, _fn=fn, **k):
+            def wrapped(*a, _fn=fn, _name=name, **k):
                 out = _fn(*a, **k)
-                record.append(out[0] if isinstance(out, tuple) else out)
+                if _name == "stylize_batch":
+                    record.extend(out)
+                else:
+                    record.append(out[0] if isinstance(out, tuple) else out)
                 return out
             setattr(engine, name, wrapped)
     driver = VideoDriver(engine, opt, flow_provider=provider)
@@ -346,9 +433,8 @@ def _drive(torch, opt, record=None, write=True):
 def run_main_path(torch, workdir):
     import numpy as np
     from fast_artistic_videos_tpu_torch.core import io
-    from fast_artistic_videos_tpu_torch.ops import front_kernel, rblock_kernel, warp_kernel
 
-    kernels = {k.name: k for k in (warp_kernel.KERNEL, rblock_kernel.KERNEL, front_kernel.KERNEL)}
+    kernels = _kernels()
     frames = pan_frames(7, FRAMES_1080, *SIZE_1080, PAN_1080)
     for t, f in enumerate(frames, 1):
         io.write_ppm(os.path.join(workdir, f"frame_{t:05d}.ppm"), f)
@@ -359,7 +445,8 @@ def run_main_path(torch, workdir):
     # per pair: K1 once for the engine's prior warp, 3 feature warps per
     # flow direction (pyramid levels 2, 1, 0), once for the consistency
     # check's sample
-    expect = {"front_conv": 3 * n, "res_chain_conv": 10 * n, "warp_banded": pairs * (1 + 6 + 1)}
+    expect = {"front_conv": 3 * n, "res_chain_conv": 10 * n, "warp_banded": pairs * (1 + 6 + 1),
+              "conv3x3": 0, "strip_warp": 0}
     counted = {}
     fps = {}
     for dtype in ("float32", "bfloat16"):
@@ -505,13 +592,9 @@ def _device_ms(torch, prof, name=""):
 
 def run_vr_path(torch, workdir):
     """Phase 6. Returns (launches of the float32 run, {dtype: fps})."""
-    import numpy as np
     from fast_artistic_videos_tpu_torch.core import io
-    from fast_artistic_videos_tpu_torch.ops import (front_kernel, rblock_kernel,
-                                                    strip_warp_kernel, warp_kernel)
 
-    kernels = {k.name: k for k in (warp_kernel.KERNEL, rblock_kernel.KERNEL,
-                                   front_kernel.KERNEL, strip_warp_kernel.KERNEL)}
+    kernels = _kernels()
     faces = vr_faces(11, VR_FRAMES, VR_FACE, VR_PAN)
     d = os.path.join(workdir, "vr")
     os.makedirs(d, exist_ok=True)
@@ -525,7 +608,7 @@ def run_vr_path(torch, workdir):
     # frame after the first: K1 6 temporal warps, 6 feature warps (3 pyramid
     # levels x 2 directions, the 6 faces batched) and 6 consistency samples
     expect = {"strip_warp": 36 * n + 4, "front_conv": 18 * n, "res_chain_conv": 60 * n,
-              "warp_banded": 18 * (n - 1)}
+              "warp_banded": 18 * (n - 1), "conv3x3": 0}
     counted, fps = {}, {}
     for dtype in ("float32", "bfloat16"):
         prefix = os.path.join(d, dtype, "o")
@@ -668,6 +751,174 @@ def check_fixture(torch, workdir):
         raise AssertionError(f"fixture parity failed: {err}")
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: the batched path, feature reuse and scale, their fixture
+# ---------------------------------------------------------------------------
+
+BATCH_FRAMES, BATCH_N = 8, 4
+
+
+def _reset(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def run_batched_path(torch, workdir):
+    """Phase 8 on the phase-4 frames. Returns (launches of the float32 run,
+    {dtype: fps}, {dtype: fps without PNG})."""
+    from fast_artistic_videos_tpu_torch.cli import stylize_video as cli
+    from fast_artistic_videos_tpu_torch.core import config, io
+
+    kernels = _kernels()
+    pattern = os.path.join(workdir, "frame_%05d.ppm")
+    n = BATCH_FRAMES
+    # one K4 launch per block conv (5 blocks x 2) per batch step
+    expect = {name: 0 for name in kernels}
+    expect["conv3x3"] = 10 * (n // BATCH_N)
+    counted, fps, fps_no_png = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        def opts(frames):
+            return config.StylizeOptions(
+                input_pattern=pattern, output_prefix=os.path.join(workdir, "b" + dtype, "o"),
+                model_vid="demo", create_inconsistent=True, inconsistent_batch=BATCH_N,
+                dtype=dtype, num_frames=frames)
+        _drive(torch, opts(BATCH_N))                           # warm-up
+        _reset(kernels)
+        outs = []
+        results, secs = _drive(torch, opts(n), record=outs)
+        launches = {name: k.launches for name, k in kernels.items()}
+        log(f"batched path {dtype}: {len(results)} frames {SIZE_1080} in batches of {BATCH_N} "
+            f"in {secs:.3f} s ({n / secs:.3f} fps, CUDA events over the whole run, PNG "
+            f"output), launches {launches}, expected {expect}")
+        if len(results) != n or len(outs) != n or launches != expect:
+            raise AssertionError(f"batched path {dtype}: {len(results)} frames, "
+                                 f"launches {launches} != {expect}")
+        for o in outs:
+            if tuple(o.shape) != SIZE_1080 + (3,) or not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"batched path {dtype}: bad output {tuple(o.shape)}")
+        counted[dtype], fps[dtype] = launches, n / secs
+        _, secs = _drive(torch, opts(n), write=False)
+        fps_no_png[dtype] = n / secs
+        # the same frames one at a time (batch 1: K3 + K2): instance-norm
+        # statistics are per image, so batching changes nothing
+        engine = cli.build_engine(opts(n), cli.resolve_device("cuda"))
+        err = 0.0
+        for t, o in enumerate(outs, 1):
+            frame = torch.from_numpy(io.load_image_u8(pattern % t)).cuda()
+            err = max(err, (engine.stylize_first(frame) - o).abs().mean().item())
+        log(f"batched path {dtype} without PNG encoding: {fps_no_png[dtype]:.3f} fps; batched "
+            f"vs one at a time (K3 + K2) mean-abs per frame max {err:.3g} (tol 1e-2)")
+        if not err <= 1e-2:
+            raise AssertionError(f"batched path {dtype}: batched vs unbatched {err}")
+    return counted["float32"], fps, fps_no_png
+
+
+def _reuse_schedule(n, k):
+    """(keyframes, reuse frames) of an n-frame --feature_reuse k run (frame
+    1 is stylized independently): the driver's key_age rule."""
+    keys = reuse = 0
+    age = None
+    for _ in range(2, n + 1):
+        if age is None or age >= k - 1:
+            keys, age = keys + 1, 0
+        else:
+            reuse, age = reuse + 1, age + 1
+    return keys, reuse
+
+
+def run_reuse_and_scale(torch, workdir):
+    """Phase 9, float32, on the phase-4 frames; phase 4's float32 PNGs are
+    the exact run. Returns {"reuse": fps, "reuse_no_png": fps, "scale": fps}."""
+    import dataclasses
+
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.core import io
+
+    kernels = _kernels()
+    pattern = os.path.join(workdir, "frame_%05d.ppm")
+    n, k = FRAMES_1080, 3
+    keys, reuse = _reuse_schedule(n, k)
+    pairs = n - 1
+    # K2: frame 1 and every keyframe's middle segment; K3: frame 1 only (the
+    # split's front stops at the reuse tap, before the fused front applies);
+    # K1: the provider's 7 per pair, the prior warp per step, the delta warp
+    # per reuse frame
+    expect = {"front_conv": 3, "res_chain_conv": 10 * (1 + keys),
+              "warp_banded": 7 * pairs + pairs + reuse, "conv3x3": 0, "strip_warp": 0}
+    prefix = os.path.join(workdir, "reuse", "o")
+    opt = dataclasses.replace(_options(pattern, prefix, "float32", n), feature_reuse=k)
+    _drive(torch, dataclasses.replace(opt, num_frames=4))        # warm-up
+    _reset(kernels)
+    outs = []
+    results, secs = _drive(torch, opt, record=outs)
+    launches = {name: kk.launches for name, kk in kernels.items()}
+    fps = {"reuse": n / secs}
+    log(f"feature reuse 3, float32: {n} frames {SIZE_1080} ({keys} keyframes, {reuse} reuse "
+        f"frames) in {secs:.3f} s ({n / secs:.3f} fps, CUDA events, PNG output), launches "
+        f"{launches}, expected {expect}")
+    if len(results) != n or launches != expect:
+        raise AssertionError(f"feature reuse: launches {launches} != {expect}")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError("feature reuse: non-finite output")
+    exact = [io.load_image_u8(os.path.join(workdir, "float32", f"o-{t:05d}.png"))
+             for t in range(1, n + 1)]
+    got = [io.load_image_u8(f"{prefix}-{t:05d}.png") for t in range(1, n + 1)]
+    d12 = max(int(np.abs(g.astype(int) - e.astype(int)).max()) for g, e in zip(got[:2], exact[:2]))
+    mae = [float(np.abs(g.astype(np.float32) - e.astype(np.float32)).mean() / 255)
+           for g, e in zip(got[2:], exact[2:])]
+    log(f"feature reuse vs the exact run (phase 4, float32): frames 1-2 max uint8 diff {d12} "
+        f"(tol 1), frames 3-{n} mean-abs {[round(m, 5) for m in mae]} (tol 0.05)")
+    if d12 > 1 or not max(mae) < 0.05:
+        raise AssertionError(f"feature reuse: frames 1-2 diff {d12}, reuse mae {mae}")
+    _, secs = _drive(torch, opt, write=False)
+    fps["reuse_no_png"] = n / secs
+    log(f"feature reuse 3 float32 without PNG encoding: {fps['reuse_no_png']:.3f} fps")
+    # --scale_factor 0.5: stylized at 540x960, written at 1080x1920
+    ns = 6
+    sprefix = os.path.join(workdir, "scale", "o")
+    sopt = dataclasses.replace(_options(pattern, sprefix, "float32", ns), scale_factor=0.5)
+    outs = []
+    results, secs = _drive(torch, sopt, record=outs)
+    fps["scale"] = ns / secs
+    written = [io.load_image_u8(f"{sprefix}-{t:05d}.png") for t in range(1, ns + 1)]
+    log(f"scale 0.5 float32: {ns} frames in {secs:.3f} s ({fps['scale']:.3f} fps, PNG output); "
+        f"stylized {tuple(outs[0].shape)}, written {written[0].shape}")
+    if (len(results) != ns or any(w.shape != SIZE_1080 + (3,) for w in written)
+            or any(tuple(o.shape) != (540, 960, 3) or not bool(torch.isfinite(o).all())
+                   for o in outs)):
+        raise AssertionError("scale 0.5: bad output")
+    return fps
+
+
+def check_batch_fixture(torch, workdir):
+    """Phase 10."""
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.cli import stylize_video as cli
+    from fast_artistic_videos_tpu_torch.core import io
+
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_parity_batch.npz")) as z:
+        fx = {k: z[k] for k in z.files}
+    for name in ("batch", "reuse", "scale", "phase"):
+        want = fx[f"outputs_{name}"]
+        n = len(want)
+        d = os.path.join(workdir, "fixture_" + name)
+        os.makedirs(d, exist_ok=True)
+        for t, f in enumerate(fx["frames"][:n], 1):
+            io.write_ppm(os.path.join(d, f"frame_{t:05d}.ppm"), f)
+        prefix = os.path.join(d, "out", "o")
+        args = [str(a) for a in fx[f"args_{name}"]]
+        cli.main(["--input_pattern", os.path.join(d, "frame_%05d.ppm"), "--model_vid", "demo",
+                  "--flow_model", "bundled", "--flow_scale", "0.5", "--output_prefix", prefix,
+                  "--num_frames", str(n), "--device", "cuda", *args])
+        got = np.stack([io.load_image_u8(f"{prefix}-{t:05d}.png") for t in range(1, n + 1)])
+        err = np.abs(got.astype(np.float32) - want.astype(np.float32)).mean(axis=(1, 2, 3)) / 255
+        log(f"batch fixture parity {' '.join(args)} (port CLI on the card vs JAX CLI on CPU): "
+            f"mean-abs per frame {[float(e) for e in err]}, max uint8 diff "
+            f"{int(np.abs(got.astype(int) - want.astype(int)).max())} (tol mean-abs 1e-2)")
+        if got.shape != want.shape or not (err <= 1e-2).all():
+            raise AssertionError(f"batch fixture parity {name} failed: {err}")
+
+
 def main() -> int:
     try:
         import torch
@@ -683,8 +934,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from fast_artistic_videos_tpu_torch.ops import _build, front_kernel, rblock_kernel
-    from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel, warp_kernel
+    from fast_artistic_videos_tpu_torch.ops import _build
 
     # 1. environment
     smi = _nvidia_smi()
@@ -706,14 +956,22 @@ def main() -> int:
         check_fixture(torch, work)
         vr_counted, vr_fps = run_vr_path(torch, work)
         check_vr_fixture(torch, work)
+        # 8. batched path; 9. feature reuse and scale; 10. their fixture
+        b_counted, b_fps, b_fps_no_png = run_batched_path(torch, work)
+        r_fps = run_reuse_and_scale(torch, work)
+        check_batch_fixture(torch, work)
     torch.cuda.synchronize()
 
     rows = []
-    # launches: K5 from the VR path's float32 run, the others from the 2D path's
-    for k, launches in ((warp_kernel.KERNEL, counted["float32"]),
-                        (rblock_kernel.KERNEL, counted["float32"]),
-                        (front_kernel.KERNEL, counted["float32"]),
-                        (strip_warp_kernel.KERNEL, vr_counted)):
+    # launches: K5 from the VR path's float32 run, K4 from the batched
+    # path's, the others from the 2D path's
+    kernels = _kernels()
+    for name, launches in (("warp_banded", counted["float32"]),
+                           ("res_chain_conv", counted["float32"]),
+                           ("front_conv", counted["float32"]),
+                           ("conv3x3", b_counted),
+                           ("strip_warp", vr_counted)):
+        k = kernels[name]
         cases = res[k.name]
         first = cases[0]              # the first case is the main-path shape in float32
         rows.append({"name": k.name, "route": "cuda", "source": k.source,
@@ -726,6 +984,12 @@ def main() -> int:
     log(f"fps VR {VR_FACE}^2 faces float32 {vr_fps['float32']:.3f} "
         f"({vr_fps['float32_no_png']:.3f} without PNG) bfloat16 {vr_fps['bfloat16']:.3f} "
         f"({vr_fps['bfloat16_no_png']:.3f} without PNG)")
+    log(f"fps 1080p batched x{BATCH_N} float32 {b_fps['float32']:.3f} "
+        f"({b_fps_no_png['float32']:.3f} without PNG) bfloat16 {b_fps['bfloat16']:.3f} "
+        f"({b_fps_no_png['bfloat16']:.3f} without PNG)")
+    log(f"fps 1080p feature reuse 3 float32 {r_fps['reuse']:.3f} "
+        f"({r_fps['reuse_no_png']:.3f} without PNG; the exact run {fps['float32']:.3f}); "
+        f"scale 0.5 float32 {r_fps['scale']:.3f}")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

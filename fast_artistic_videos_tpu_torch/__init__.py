@@ -13,11 +13,13 @@ conventions so the two can be compared like for like:
 Inside, convolutions run on NCHW views (channels-last memory, so an NHWC
 tensor permuted to NCHW costs no copy) and parameters are OIHW tensors.
 
-Every Pallas kernel on the ported paths (the streaming 2D stylizer and the
-spherical VR stylizer) has a hand-written CUDA kernel for Hopper under
-``csrc/`` (built at first use by ``ops/_build.py``). Each
-kernel wrapper runs its plain PyTorch version for a CPU tensor and launches
-the kernel, or raises, for a CUDA tensor — there is no fallback.
+Every Pallas kernel of the JAX package (K1-K5: the banded warp, the
+residual-chain conv, the front conv, the block conv and the VR strip warp)
+has a hand-written CUDA kernel for Hopper under ``csrc/`` (built at first
+use by ``ops/_build.py``). Each kernel wrapper runs its plain PyTorch
+version for a CPU tensor and launches the kernel, or raises, for a CUDA
+tensor — there is no fallback. Library entry points run on the card
+unless the caller passes ``device="cpu"`` (``core/device.py``).
 
 The package imports ``torch`` and numpy and never ``jax`` nor any module of
 the JAX package: it keeps its own copies of the JAX package's jax-free

@@ -10,6 +10,12 @@ Zero-download example (bundled demo model and flow estimator):
       --input_pattern frames/frame_%05d.ppm --model_vid demo \\
       --flow_model bundled --flow_scale 0.5 --output_prefix out/o
 
+Every flag of the JAX CLI is carried except ``--evaluate`` (evaluation is
+slice B of ROADMAP.md), which raises. ``--phase_resident`` keeps the JAX
+CLI's validation and runs the plain path: the 16-phase quarter-resolution
+layout is a TPU layout, and the JAX package holds the two modes to within
+one uint8 step of each other.
+
 float32 runs with TF32 off for cuDNN and matmuls, so the port's float32
 numbers are float32.
 """
@@ -66,8 +72,17 @@ def build_engine(opt: StylizeOptions, device) -> StylizerEngine:
     cfg = EngineConfig(fill_occlusions=opt.fill_occlusions,
                        occlusions_min_filter=opt.occlusions_min_filter,
                        dtype=opt.dtype, exact_warp=opt.exact_warp)
+    if opt.phase_resident and not stylizer.supports_phase_io(spec_v):
+        raise SystemExit("--phase_resident: this architecture does not support "
+                         "phase-io (needs stride-4 with 4-aligned input padding)")
+    # the segment-capable apply and the split plan enable --feature_reuse
+    plan = stylizer.reuse_split_plan(spec_v)
+    split = None
+    if plan is not None:
+        split = lambda p, x, **kw: stylizer.apply(p, spec_v, x, **kw)  # noqa: E731
     return StylizerEngine(apply_vid, params_v, apply_img, params_img,
-                          stride_multiple=stride, config=cfg, device=device)
+                          stride_multiple=stride, config=cfg, device=device,
+                          apply_vid_split=split, reuse_plan=plan)
 
 
 def build_flow_provider(opt: StylizeOptions, device):
@@ -77,8 +92,13 @@ def build_flow_provider(opt: StylizeOptions, device):
     if opt.flow_device >= 0 and device.type == "cuda":
         device = torch.device("cuda", opt.flow_device)
     # flow_scale < 1: the provider erodes the certainty at flow resolution
-    # (exact), and the engine skips its full-resolution min-filter
-    erode_window = opt.occlusions_min_filter if 0 < opt.flow_scale < 1.0 else None
+    # (exact), and the engine skips its full-resolution min-filter — but not
+    # when the certainty is resized (scale_factor) or reaches the reuse steps,
+    # which erode it themselves (the JAX CLI's conditions)
+    erode_window = (opt.occlusions_min_filter
+                    if (0 < opt.flow_scale < 1.0 and opt.scale_factor == 1.0
+                        and opt.feature_reuse <= 1 and not opt.phase_resident)
+                    else None)
     return StreamingFlowProvider(
         flow_estimator.load_params(opt.flow_model, device), device=device,
         flow_scale=opt.flow_scale,
@@ -101,6 +121,17 @@ def main(argv=None):
             and (not opt.flow_pattern or not opt.occlusions_pattern)):
         p.error("--flow_pattern and --occlusions_pattern are required "
                 "(or pass --flow_model for streaming flow, or --create_inconsistent)")
+    if opt.phase_resident:
+        if not opt.flow_model or not (0 < opt.flow_scale < 1.0):
+            p.error("--phase_resident needs --flow_model with "
+                    "0 < --flow_scale < 1 (the JAX CLI's phased flow lives "
+                    "at estimation resolution)")
+        if (opt.scale_factor != 1.0 or opt.feature_reuse > 1
+                or opt.exact_warp or opt.fill_occlusions != "vgg-mean"
+                or opt.create_inconsistent):
+            p.error("--phase_resident is incompatible with --scale_factor, "
+                    "--feature_reuse, --exact_warp, --create_inconsistent "
+                    "and non-default --fill_occlusions")
     check_supported(opt)
     device = resolve_device(args.device)
     engine = build_engine(opt, device)

@@ -1,6 +1,6 @@
-// Instance-norm direct convolution for Hopper (sm_90a), plain C interface.
+// Direct convolution for Hopper (sm_90a), plain C interface.
 //
-// Replaces two Pallas kernels with one template:
+// Replaces three Pallas kernels with one template:
 //   * fast_artistic_videos_tpu/ops/rblock_pallas.py `_kernel` (pallas_call
 //     in `_chain_conv`) — the residual chain's VALID 3x3 convs, two launches
 //     per R128 block (K2): (kh, kw, stride, pad) = (3, 3, 1, 0);
@@ -8,9 +8,16 @@
 //     `_same_conv`) — the stylizer front, layers 0-2 (K3): (9, 9, 1, 4) for
 //     7 -> 32, then (3, 3, 2, 1) for 32 -> 64 and 64 -> 128. The TPU runs
 //     these in a 16-phase space-to-depth layout to feed its 128-lane MXU;
-//     here they run directly on the logical NHWC grid.
+//     here they run directly on the logical NHWC grid;
+//   * fast_artistic_videos_tpu/ops/conv_pallas.py `_conv3x3_kernel`
+//     (pallas_call in `_conv3x3_padded`) — the block convs outside the fused
+//     chain (K4, entry `fav_conv3x3`): (3, 3, 1, pad 0 or 1), no prologue,
+//     no statistics, an optional ReLU epilogue, the batch in the grid. The
+//     TPU version's 16-row DMA windows, row padding to a tile multiple and
+//     8-aligned widths are TPU layout and are not carried: the zero pad of
+//     the SAME form is read through the halo loads (no host pad copy).
 //
-// y = conv(prologue(x), w) + b, with
+// y = [relu_out] ( conv(prologue(x), w) + b ), with
 //   prologue(x) = [+ skip[+2, +2]] ( [relu] ( eff[0] * x + eff[1] ) )
 // applied per input channel (each step optional; values rounded to the
 // storage dtype after the affine and after the skip add, as the Pallas
@@ -18,19 +25,23 @@
 // input reads 0, not eff(0) (front_pallas.py:84-93). With `a` non-null the
 // prologue result is also stored (the materialized residual-block input that
 // the next block uses as its skip).
-// Epilogue: bias, store in the storage dtype, and per-output-channel
-// [sum; sum of squares] of the STORED (dtype-rounded) values, accumulated
-// with atomics into an f32 (2, Cout) buffer the caller zeroes — the
-// instance-norm statistics of the next layer's prologue.
+// Epilogue: bias, the optional ReLU, store in the storage dtype, and (with
+// `stats` non-null) per-output-channel [sum; sum of squares] of the STORED
+// (dtype-rounded) values, accumulated with atomics into an f32 (2, Cout)
+// buffer per image that the caller zeroes — the instance-norm statistics of
+// the next layer's prologue.
 //
-// Layout: NHWC activations, HWIO weights (kh, kw, Cin, Cout), f32 or bf16
-// storage, f32 accumulation. Batch 1 (the streaming path).
+// Layout: NHWC activations, batch N (each image's tensors at a fixed
+// stride), HWIO weights (kh, kw, Cin, Cout), f32 or bf16 storage, f32
+// accumulation. K2 and K3 launch with N = 1 (the streaming path); K4 with
+// the whole batch in one launch (blockIdx.z = image * Cout blocks + block).
 //
 // What bounds it on the H100: CUDA-core FMAs. At f32 the R128 chain is about
-// 43 GFLOP per conv at 1080p and layer 0 about 84 GFLOP; no tensor cores are
-// used yet (no wgmma/TMA — later work), so the roofline is the 67 TFLOP/s
-// f32 FMA rate, not memory. Design: a block owns a 16 x 16 output tile x 32
-// output channels; the input halo (with the prologue applied once per
+// 43 GFLOP per conv at 1080p, layer 0 about 84 GFLOP and a batched K4 conv
+// of four 1080p frames about 150 GFLOP; no tensor cores are used yet (no
+// wgmma/TMA — later work), so the roofline is the 67 TFLOP/s f32 FMA rate,
+// not memory. Design: a block owns a 16 x 16 output tile x 32 output
+// channels of one image; the input halo (with the prologue applied once per
 // element) and the weight slice for a chunk of input channels are staged in
 // shared memory as f32; each of the 256 threads keeps 4 pixels x 8 channels
 // of accumulators in registers, so every shared-memory load feeds 4-8 FMAs.
@@ -75,10 +86,11 @@ struct ConvArgs {
   const float* eff;   // (2, cin) or null
   const void* skip;   // (hin + 4, win + 4, cin) or null
   void* y;            // (hout, wout, cout)
-  float* stats;       // (2, cout), zeroed by the caller
+  float* stats;       // (2, cout), zeroed by the caller, or null
   void* a;            // (hin, win, cin) or null
+  int n;              // images; every tensor above is per image
   int hin, win, cin, hout, wout, cout;
-  int kh, kw, stride, pad, relu;
+  int kh, kw, stride, pad, relu, out_relu;
   int cc;             // input channels per shared-memory pass (pick_chunk)
 };
 
@@ -101,21 +113,27 @@ __global__ void __launch_bounds__(kThreads) conv_in_kernel(ConvArgs p) {
   float* s_in = smem;                                  // [cc][ih_t][iw_t]
   float* s_w = smem + in_floats(p.cc, ih_t, iw_t);     // [kh*kw][cc][kTCO]
 
-  const T* x = static_cast<const T*>(p.x);
+  const int co_blocks = (p.cout + kTCO - 1) / kTCO;
+  const int img = blockIdx.z / co_blocks;
+  const int64_t in_px = (int64_t)p.hin * p.win * p.cin;
+  const T* x = static_cast<const T*>(p.x) + img * in_px;
   const T* w = static_cast<const T*>(p.w);
-  const T* skip = static_cast<const T*>(p.skip);
-  T* y = static_cast<T*>(p.y);
-  T* a = static_cast<T*>(p.a);
+  const T* skip = p.skip ? static_cast<const T*>(p.skip)
+                               + img * (int64_t)(p.hin + 4) * (p.win + 4) * p.cin
+                         : nullptr;
+  T* y = static_cast<T*>(p.y) + img * (int64_t)p.hout * p.wout * p.cout;
+  T* a = p.a ? static_cast<T*>(p.a) + img * in_px : nullptr;
+  float* stats = p.stats ? p.stats + img * 2 * p.cout : nullptr;
 
   const int tid = threadIdx.x;
   const int ox0 = blockIdx.x * kTW, oy0 = blockIdx.y * kTH;
-  const int co0 = blockIdx.z * kTCO;
+  const int co0 = (blockIdx.z % co_blocks) * kTCO;
   const int iy0 = oy0 * p.stride - p.pad, ix0 = ox0 * p.stride - p.pad;
   const int cg = tid / 64;            // channel group: co0 + cg*8 .. +8
   const int pg = tid % 64;            // pixel group: col pg%16, rows +4
   const int lx = pg % kTW, ly0 = (pg / kTW) * kPX;
 
-  if (tid < 2 * kTCO) s_stat[tid / kTCO][tid % kTCO] = 0.f;
+  if (stats && tid < 2 * kTCO) s_stat[tid / kTCO][tid % kTCO] = 0.f;
 
   float acc[kPX][kCO];
 #pragma unroll
@@ -126,7 +144,7 @@ __global__ void __launch_bounds__(kThreads) conv_in_kernel(ConvArgs p) {
   // Emission: input pixels are partitioned among the tiles (tile t owns the
   // rows [iy0, iy0 + kTH*stride), the last tile everything to its halo end),
   // and only the first channel block writes, so each element is stored once.
-  const bool emit = a != nullptr && blockIdx.z == 0;
+  const bool emit = a != nullptr && co0 == 0;
   const bool last_y = blockIdx.y == gridDim.y - 1;
   const bool last_x = blockIdx.x == gridDim.x - 1;
   const int own_y1 = iy0 + kTH * p.stride, own_x1 = ix0 + kTW * p.stride;
@@ -188,7 +206,7 @@ __global__ void __launch_bounds__(kThreads) conv_in_kernel(ConvArgs p) {
     }
   }
 
-  // epilogue: bias, store, statistics of the stored values
+  // epilogue: bias, ReLU, store, statistics of the stored values
   float ssum[kCO], ssq[kCO];
 #pragma unroll
   for (int j = 0; j < kCO; ++j) ssum[j] = ssq[j] = 0.f;
@@ -202,7 +220,9 @@ __global__ void __launch_bounds__(kThreads) conv_in_kernel(ConvArgs p) {
 #pragma unroll
       for (int j = 0; j < kCO; ++j) {
         if (cb + j < p.cout) {
-          const T st = from_f<T>(acc[i][j] + p.b[cb + j]);
+          float v = acc[i][j] + p.b[cb + j];
+          if (p.out_relu) v = fmaxf(v, 0.f);
+          const T st = from_f<T>(v);
           yp[j] = st;
           const float r = to_f<T>(st);
           ssum[j] += r;
@@ -211,6 +231,7 @@ __global__ void __launch_bounds__(kThreads) conv_in_kernel(ConvArgs p) {
       }
     }
   }
+  if (!stats) return;  // uniform across the block: no barrier is skipped
 #pragma unroll
   for (int j = 0; j < kCO; ++j) {
 #pragma unroll
@@ -229,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) conv_in_kernel(ConvArgs p) {
   __syncthreads();
   if (tid < 2 * kTCO) {
     const int k = tid / kTCO, co = tid % kTCO;
-    if (co0 + co < p.cout) atomicAdd(&p.stats[k * p.cout + co0 + co], s_stat[k][co]);
+    if (co0 + co < p.cout) atomicAdd(&stats[k * p.cout + co0 + co], s_stat[k][co]);
   }
 }
 
@@ -269,8 +290,9 @@ int launch(ConvArgs& p, cudaStream_t s) {
   if (bytes > kSmemBudget) return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem<T>();
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((p.wout + kTW - 1) / kTW, (p.hout + kTH - 1) / kTH,
-            (p.cout + kTCO - 1) / kTCO);
+  const long long zblocks = (long long)p.n * ((p.cout + kTCO - 1) / kTCO);
+  if (zblocks > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((p.wout + kTW - 1) / kTW, (p.hout + kTH - 1) / kTH, (unsigned)zblocks);
   conv_in_kernel<T><<<grid, kThreads, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
@@ -278,7 +300,7 @@ int launch(ConvArgs& p, cudaStream_t s) {
 }  // namespace
 
 // Launches on the current device (the caller makes the tensors' device
-// current) and `stream`.
+// current) and `stream`. K2 and K3: one image, prologue and statistics.
 extern "C" int fav_conv_in(const void* x, const void* w, const void* b,
                            const void* eff, const void* skip, void* y,
                            void* stats, void* a, int hin, int win, int cin,
@@ -289,9 +311,32 @@ extern "C" int fav_conv_in(const void* x, const void* w, const void* b,
   ConvArgs p;
   p.x = x; p.w = w; p.b = (const float*)b; p.eff = (const float*)eff;
   p.skip = skip; p.y = y; p.stats = (float*)stats; p.a = a;
+  p.n = 1;
   p.hin = hin; p.win = win; p.cin = cin;
   p.hout = hout; p.wout = wout; p.cout = cout;
   p.kh = kh; p.kw = kw; p.stride = stride; p.pad = pad; p.relu = relu;
+  p.out_relu = 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
+}
+
+// K4: 3x3 stride-1 conv of n images (n, hin, win, cin) -> (n, hout, wout,
+// cout) with hout = hin + 2 pad - 2, zero padding `pad` (0 or 1), bias and
+// an optional ReLU epilogue; one launch for the whole batch.
+extern "C" int fav_conv3x3(const void* x, const void* w, const void* b, void* y,
+                           int n, int hin, int win, int cin, int cout, int pad,
+                           int relu, int is_bf16, void* stream) {
+  if (n < 1 || cout < 1 || cin < 1 || pad < 0 || pad > 1)
+    return (int)cudaErrorInvalidValue;
+  ConvArgs p;
+  p.x = x; p.w = w; p.b = (const float*)b; p.eff = nullptr;
+  p.skip = nullptr; p.y = y; p.stats = nullptr; p.a = nullptr;
+  p.n = n;
+  p.hin = hin; p.win = win; p.cin = cin;
+  p.hout = hin + 2 * pad - 2; p.wout = win + 2 * pad - 2; p.cout = cout;
+  if (p.hout < 1 || p.wout < 1) return (int)cudaErrorInvalidValue;
+  p.kh = 3; p.kw = 3; p.stride = 1; p.pad = pad; p.relu = 0;
+  p.out_relu = relu;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
 }

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import device as device_mod
 from ..models.checkpoint import ASSETS, params_from_numpy
 from ..ops import warp as warp_ops
 
@@ -167,11 +168,11 @@ def _scaled(h: int, w: int, flow_scale: float):
 class FlowEstimator:
     """Streaming front end of the estimator: per-frame pyramids (``prep``)
     and both flow directions of a pair from two cached pyramids
-    (``refine_pair``), on ``device``."""
+    (``refine_pair``), on ``device`` (the card unless ``device="cpu"``)."""
 
-    def __init__(self, params: Params, dtype=torch.float32, device="cpu"):
+    def __init__(self, params: Params, dtype=torch.float32, device=device_mod.DEFAULT):
         self.params = params
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self._dtype = dtype
 
     @torch.no_grad()
@@ -264,9 +265,10 @@ class FlowEstimator:
         return full, low_ab, low_ba, low_ab.abs().max()
 
 
-def load_params(path: str, device="cpu") -> Params:
-    """Estimator weights from .npz (``name/leaf`` keys); ``bundled`` is the
-    JAX package's in-tree checkpoint (``assets/flow_pwclite.npz``)."""
+def load_params(path: str, device=device_mod.DEFAULT) -> Params:
+    """Estimator weights from .npz (``name/leaf`` keys) on `device` (the
+    card unless ``device="cpu"``); ``bundled`` is the JAX package's in-tree
+    checkpoint (``assets/flow_pwclite.npz``)."""
     if path == "bundled":
         path = os.path.join(ASSETS, "flow_pwclite.npz")
     tree: Dict[str, Dict[str, np.ndarray]] = {}

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core import device as device_mod
 from ..ops.warp import flow_band
 from . import consistency, estimator
 
@@ -47,7 +48,7 @@ class StreamingFlowProvider:
     device tensors against the previous frame, or None for the first.
     ``last_band`` is then the engine warp band covering that flow."""
 
-    def __init__(self, params=None, device="cpu", flow_scale: float = 1.0,
+    def __init__(self, params=None, device=device_mod.DEFAULT, flow_scale: float = 1.0,
                  flow_estimator=None, dtype=None, coarse_backward: bool = False,
                  fast_check: bool = False, erode_window=None):
         """flow_scale < 1 estimates flow at reduced resolution and runs the
@@ -56,7 +57,8 @@ class StreamingFlowProvider:
         at flow resolution (the engine is then called with
         pre_eroded=True). dtype: the estimator's feature dtype (flow
         accumulates in float32). flow_estimator: share one estimator
-        between providers instead of building one from params."""
+        between providers instead of building one from params on `device`
+        (the card unless ``device="cpu"``)."""
         if flow_estimator is not None:
             self.estimator = flow_estimator
         else:
@@ -132,7 +134,7 @@ class BatchedStreamingFlowProvider:
     streams and sized from the previous step's maximum |flow| over the
     check-passing pixels of the whole batch, read back without blocking."""
 
-    def __init__(self, params=None, device="cpu", use_structure: bool = True,
+    def __init__(self, params=None, device=device_mod.DEFAULT, use_structure: bool = True,
                  flow_scale: float = 1.0, flow_estimator=None, dtype=None,
                  fast_check: bool = False):
         if flow_estimator is not None:

@@ -16,6 +16,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..core import device as device_mod
 from .arch_dsl import LayerSpec, ModelSpec, parse_arch
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..", "..",
@@ -33,26 +34,30 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
-def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+def params_from_numpy(tree: Dict[str, Any], device=device_mod.DEFAULT) -> Dict[str, Any]:
     """The JAX parameter tree (nested dicts of numpy arrays, or anything
     ``np.asarray`` accepts) -> the same tree of float32 torch tensors on
-    `device`, with every 4-D conv kernel converted HWIO -> OIHW."""
+    `device` (the card unless ``device="cpu"``), with every 4-D conv kernel
+    converted HWIO -> OIHW."""
+    dev = device_mod.resolve(device)
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out[k] = params_from_numpy(v, device)
+            out[k] = params_from_numpy(v, dev)
             continue
         a = np.asarray(v, np.float32)
         if a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
-        out[k] = torch.from_numpy(np.array(a)).to(device)
+        out[k] = torch.from_numpy(np.array(a)).to(dev)
     return out
 
 
-def load_model(path: str, device=None) -> Tuple[ModelSpec, Dict[str, Any], Dict[str, Any]]:
+def load_model(path: str, device=device_mod.DEFAULT
+               ) -> Tuple[ModelSpec, Dict[str, Any], Dict[str, Any]]:
     """Returns (spec, params, meta) with params as OIHW torch tensors on
-    `device`. The literal string ``demo`` resolves to the bundled demo
-    checkpoint (``fast_artistic_videos_tpu/assets/demo-candy-video.npz``)."""
+    `device` (the card unless ``device="cpu"``). The literal string ``demo``
+    resolves to the bundled demo checkpoint
+    (``fast_artistic_videos_tpu/assets/demo-candy-video.npz``)."""
     if path == "demo":
         path = os.path.join(ASSETS, "demo-candy-video.npz")
     with np.load(path) as z:

@@ -15,7 +15,11 @@ Two execution paths with the same math:
     (``ops.front_kernel``, K3) and the residual chain through the chain
     conv kernel (``ops.rblock_kernel``, K2), each conv's instance norm +
     ReLU fused into the next launch's prologue — the counterpart of the
-    JAX package's ``fused_front="full"`` + ``fused_rblocks`` path. It is the
+    JAX package's ``fused_front="full"`` + ``fused_rblocks`` path — and
+    every other 3x3 block conv at widths that are multiples of 128 through
+    the block conv kernel (``ops.conv_kernel``, K4), the counterpart of
+    ``apply(pallas_conv=True)``: in practice the residual blocks of a batch
+    larger than one, which the chain does not take. The kernel path is the
     default for CUDA tensors wherever the architecture allows it.
 
 The JAX package's TPU-layout rewrites (phase-domain front, space-to-depth
@@ -30,9 +34,10 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from ..ops import front_kernel, rblock_kernel
+from ..core import device as device_mod
+from ..ops import conv_kernel, front_kernel, rblock_kernel
 from ..ops._conv_in import eff_affine
-from .arch_dsl import LayerSpec, ModelSpec
+from .arch_dsl import LayerSpec, ModelSpec, parse_arch
 
 Params = Dict[str, Any]
 
@@ -116,22 +121,113 @@ def _norm_apply(x, p, use_instance_norm: bool):
     return _affine(x, es, eb)
 
 
-def _block_apply(x, p, layer: LayerSpec, use_in: bool, residual: bool):
+def _block_conv(h, w, b, pad: int, kernel: bool):
+    """Block conv dispatch (the JAX package's ``_block_conv``): kernel K4
+    for 3x3 convs whose input and output widths are multiples of 128,
+    F.conv2d otherwise. pad 1 is the SAME form; pad 0 the VALID form on an
+    input the block padded itself (reflect / replicate) or that shrinks
+    (none / reflect-start)."""
+    if (kernel and w.shape[2] == 3 and w.shape[3] == 3
+            and w.shape[1] % 128 == 0 and w.shape[0] % 128 == 0):
+        if pad == 1:
+            return conv_kernel.conv3x3(h.contiguous(), w, b)
+        return conv_kernel.conv3x3_valid(h.contiguous(), w, b)
+    return conv2d(h, w, b, 1, pad)
+
+
+def _block_apply(x, p, layer: LayerSpec, use_in: bool, residual: bool,
+                 kernel: bool = False):
     pt = layer.block_padding
     inner_pad = 1 if pt == "zero" else 0
     h = x
     if pt in ("reflect", "replicate"):
         h = _pad2d(h, 1, pt)
-    h = conv2d(h, p["conv1"]["w"], p["conv1"]["b"], 1, inner_pad)
+    h = _block_conv(h, p["conv1"]["w"], p["conv1"]["b"], inner_pad, kernel)
     h = torch.relu(_norm_apply(h, p["norm1"], use_in))
     if pt in ("reflect", "replicate"):
         h = _pad2d(h, 1, pt)
-    h = conv2d(h, p["conv2"]["w"], p["conv2"]["b"], 1, inner_pad)
+    h = _block_conv(h, p["conv2"]["w"], p["conv2"]["b"], inner_pad, kernel)
     h = _norm_apply(h, p["norm2"], use_in)
     if not residual:
         return h
     skip = shave(x, 2) if pt in ("none", "reflect-start") else x
     return h + skip
+
+
+def supports_phase_io(spec: ModelSpec) -> bool:
+    """The JAX package's test for its phase-io architectures (level-2 phase
+    front: conv s1 SAME + two 3x3 s2 pad-1 convs, instance norm, an input
+    reflect pad that is a multiple of 4). The port runs no phase layout; the
+    CLI keeps the test to validate ``--phase_resident`` as the JAX CLI
+    does."""
+    if len(spec.layers) < 3 or not spec.use_instance_norm:
+        return False
+    if spec.input_pad % 4 != 0:
+        return False
+    l0, l1, l2 = spec.layers[0], spec.layers[1], spec.layers[2]
+    return (
+        l0.kind == "conv" and l0.stride == 1 and l0.pad_mode is None
+        and l0.pad == (l0.ksize - 1) // 2 and l0.norm_after and l0.relu_after
+        and l1.kind == "conv" and l1.stride == 2 and l1.ksize == 3
+        and l1.pad == 1 and l1.pad_mode is None
+        and l1.norm_after and l1.relu_after
+        and l2.kind == "conv" and l2.stride == 2 and l2.ksize == 3
+        and l2.pad == 1 and l2.pad_mode is None
+    )
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_conv(gen, ksize, in_ch, out_ch):
+    """U(-stdv, stdv) weights (OIHW) and bias, stdv = 1/sqrt(k*k*in)."""
+    stdv = 1.0 / (ksize * ksize * in_ch) ** 0.5
+    w = (torch.rand((out_ch, in_ch, ksize, ksize), generator=gen) * 2 - 1) * stdv
+    b = (torch.rand((out_ch,), generator=gen) * 2 - 1) * stdv
+    return {"w": w, "b": b}
+
+
+def _init_norm(gen, ch, use_instance_norm: bool):
+    if use_instance_norm:
+        scale = torch.rand((ch,), generator=gen)
+    else:
+        scale = torch.ones((ch,))
+    return {"scale": scale, "bias": torch.zeros((ch,))}
+
+
+def init_params(generator: torch.Generator, spec: ModelSpec,
+                device=device_mod.DEFAULT) -> Params:
+    """Random parameters with the JAX package's ``init_params`` tree and
+    distributions, drawn from `generator` (a CPU torch.Generator; its
+    numbers differ from jax.random's) and placed on `device` (the card
+    unless ``device="cpu"``)."""
+    dev = device_mod.resolve(device)
+    params: Params = {}
+    in_ch = spec.in_channels
+    use_in = spec.use_instance_norm
+    for i, layer in enumerate(spec.layers):
+        name = f"layer{i:02d}"
+        if layer.kind in ("conv", "full_conv"):
+            params[name] = _init_conv(generator, layer.ksize, in_ch, layer.out_channels)
+            in_ch = layer.out_channels
+        elif layer.kind in ("conv_block", "res_block"):
+            d = layer.out_channels
+            params[name] = {
+                "conv1": _init_conv(generator, 3, d, d),
+                "norm1": _init_norm(generator, d, use_in),
+                "conv2": _init_conv(generator, 3, d, d),
+                "norm2": _init_norm(generator, d, use_in),
+            }
+            in_ch = d
+        if layer.norm_after:
+            params[name + "_norm"] = _init_norm(generator, in_ch, use_in)
+    return _to_device(params, dev)
+
+
+def _to_device(tree, dev):
+    return {k: _to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +340,11 @@ def apply(params: Params, spec: ModelSpec, x, *, dtype=None, stop_after=None,
     the activation after layer i.
 
     fused: route layers 0-2 and the residual chain through kernels K3 and
-    K2 where the architecture allows it. None = on for CUDA tensors, off
-    for CPU tensors; True on a CPU tensor runs the kernels' plain versions
-    (the CPU tests use that to check the fused wiring)."""
+    K2, and the other 3x3 block convs whose widths are multiples of 128
+    through kernel K4 (one launch per conv for the whole batch), where the
+    architecture allows it. None = on for CUDA tensors, off for CPU
+    tensors; True on a CPU tensor runs the kernels' plain versions (the CPU
+    tests use that to check the wiring); False runs PyTorch ops only."""
     if dtype is not None:
         x = x.to(dtype)
     if fused is None:
@@ -304,11 +402,53 @@ def apply(params: Params, spec: ModelSpec, x, *, dtype=None, stop_after=None,
         elif layer.kind == "upsample":
             x = upsample_nearest(x, layer.scale)
         elif layer.kind == "conv_block":
-            x = _block_apply(x, p, layer, use_in, residual=False)
+            x = _block_apply(x, p, layer, use_in, residual=False,
+                             kernel=fused)
         elif layer.kind == "res_block":
-            x = _block_apply(x, p, layer, use_in, residual=True)
+            x = _block_apply(x, p, layer, use_in, residual=True,
+                             kernel=fused)
         if layer.norm_after:
             x = _norm_apply(x, params[name + "_norm"], use_in)
         if layer.relu_after:
             x = torch.relu(x)
     return torch.tanh(x) * spec.tanh_constant
+
+
+def build(arch: str = "canonical", in_channels: int = 7, **kw):
+    """Convenience: (spec, init_fn, apply_fn); init_fn(generator,
+    device=...) and apply_fn(params, x, **apply_kwargs)."""
+    spec = parse_arch(arch, in_channels=in_channels, **kw)
+
+    def init_fn(generator, device=device_mod.DEFAULT):
+        return init_params(generator, spec, device)
+
+    def apply_fn(params, x, **akw):
+        return apply(params, spec, x, **akw)
+
+    return spec, init_fn, apply_fn
+
+
+def count_params(params: Params) -> int:
+    return sum(count_params(v) if isinstance(v, dict) else int(v.numel())
+               for v in params.values())
+
+
+def reuse_split_plan(spec: ModelSpec):
+    """(front_tap, resume_at, crop_per_side) for the engine's feature-reuse
+    mode, or None when the arch does not support it (the JAX package's
+    ``reuse_split_plan``).
+
+    The split brackets the maximal contiguous run of residual blocks, the
+    mid-net whose output-minus-input delta the reuse mode advects by
+    low-resolution flow (video/engine.py). crop_per_side is how much the
+    VALID blocks shave the feature grid (2 px per side per reflect-start or
+    none block), i.e. how to align the front tap with the block output:
+    f_blocks ~= shave(f_front, crop) + delta. front_tap must be >= 2."""
+    idxs = [i for i, l in enumerate(spec.layers) if l.kind == "res_block"]
+    if not idxs or idxs != list(range(idxs[0], idxs[-1] + 1)):
+        return None
+    if idxs[0] - 1 < 2:
+        return None
+    crop = sum(2 for i in idxs
+               if spec.layers[i].block_padding in ("none", "reflect-start"))
+    return idxs[0] - 1, idxs[-1] + 1, crop

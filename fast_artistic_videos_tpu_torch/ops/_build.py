@@ -37,6 +37,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "fav_warp_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fav_conv_in": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
+    "fav_conv3x3": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "fav_strip_warp": [_P] * 6 + [_I] * 12 + [_P],
 }
 

@@ -1,6 +1,6 @@
 """Spatial filters — counterpart of ``fast_artistic_videos_tpu/ops/filters.py``:
-``min_filter`` (the occlusion erosion), ``median_filter`` and the gradient
-masks of the VR seam blend.
+``min_filter`` (the occlusion erosion), ``median_filter``,
+``flow_magnitude_mask`` and the gradient masks of the VR seam blend.
 
 ``min_filter`` is grayscale erosion with border-clipped windows
 (utils.lua:161-169): a separable pair of 1-D min passes whose +inf padding
@@ -69,6 +69,15 @@ def median_filter(x, size: int):
         k = (size * size - 1) // 2
         med = torch.sort(torch.stack(p, dim=-1), dim=-1).values[..., k]
     return med[..., 0] if squeeze else med
+
+
+def flow_magnitude_mask(flow, max_magn: float):
+    """1 where the flow is static, ramping to 0 at |flow| >= max_magn.
+
+    flow: (..., H, W, 2) with (dx, dy) channels; 1 - min(|flow| / max_magn,
+    1) (utils.lua:171-177)."""
+    mag = torch.sqrt(torch.sum(flow * flow, dim=-1))
+    return 1.0 - torch.clamp(mag / max_magn, max=1.0)
 
 
 # Linear gradient masks for VR seam blending (utils.lua:179-213): (H, W)

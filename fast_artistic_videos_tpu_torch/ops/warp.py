@@ -137,3 +137,13 @@ def flow_band(max_abs_flow: float, minimum: int = 8) -> int:
     while b < max_abs_flow:
         b = b + 8 if b < 64 else b * 2
     return b
+
+
+def warp_weight_map(flow, h: int, w: int):
+    """Total bilinear tap weight landing in-bounds for each output pixel:
+    the exact warp of an all-ones (h, w) image by `flow` (..., h, w, 2).
+    ``fix_occlusions`` (fast_artistic_video.lua:79-86) thresholds it to
+    find the unmapped regions."""
+    ones = torch.ones(tuple(flow.shape[:-1]) + (1,), dtype=flow.dtype,
+                      device=flow.device)
+    return bilinear_warp(ones, flow)[..., 0]

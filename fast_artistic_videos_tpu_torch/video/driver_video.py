@@ -8,6 +8,12 @@ certainty come from a streaming provider or from files named by the flow
 pattern DSL. A prefetch thread loads and uploads frame i+1 (and runs the
 flow provider on it) while the device stylizes frame i; a writer thread
 saves the uint8 frames that come out of the same step.
+
+Modes: ``--create_inconsistent --inconsistent_batch N`` stylizes N
+independent frames per forward (``_run_batched``); ``--feature_reuse K``
+runs a full keyframe every K frames and advects the residual chain's delta
+in between; ``--scale_factor s`` stylizes at s times the frame size (the
+recurrence is carried at that size) and resizes each output back.
 """
 
 from __future__ import annotations
@@ -19,37 +25,41 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core import io
 from ..core.config import StylizeOptions, format_flow_name
 from ..ops import warp
 from ..utils import pipeline
-from .engine import StylizerEngine
+from .engine import StylizerEngine, quantize_u8
 
 NOT_PORTED = "not carried by the PyTorch port yet (see ROADMAP.md)"
 
 
 def check_supported(opt: StylizeOptions) -> None:
     """Raise for the options this port does not carry yet."""
-    if opt.phase_resident:
-        raise NotImplementedError(f"--phase_resident is {NOT_PORTED}")
-    if opt.feature_reuse > 1:
-        raise NotImplementedError(f"--feature_reuse > 1 is {NOT_PORTED}")
     if opt.evaluate:
         raise NotImplementedError(f"--evaluate is {NOT_PORTED}")
-    if opt.create_inconsistent and opt.inconsistent_batch > 1:
-        raise NotImplementedError(
-            f"--create_inconsistent with --inconsistent_batch > 1 is {NOT_PORTED}")
-    if opt.scale_factor != 1.0:
-        raise NotImplementedError(f"--scale_factor != 1 is {NOT_PORTED}")
 
 
 def fix_occlusions_mask(cert: np.ndarray, flow: np.ndarray) -> np.ndarray:
-    """Zero certainty where warping leaves no correspondence: warp an
-    all-ones image and threshold at 0.5 (fast_artistic_video.lua:79-86)."""
-    ones = torch.ones(cert.shape + (1,))
-    weight = warp.bilinear_warp(ones, torch.from_numpy(flow))[..., 0].numpy()
+    """Zero certainty where warping leaves no correspondence: the warp of an
+    all-ones image, thresholded at 0.5 (fast_artistic_video.lua:79-86)."""
+    weight = warp.warp_weight_map(torch.from_numpy(flow), *cert.shape).numpy()
     return cert * np.sign(weight - 0.5).clip(min=0.0)
+
+
+def resize_bicubic(arr, scale: float):
+    """(H, W, C) tensor -> (round(H s), round(W s), C) float32: the JAX
+    package's ``jax.image.resize(method="bicubic")``, i.e. Keys' cubic
+    (a = -0.5) widened by 1/s when shrinking, with weights renormalized at
+    the borders, which is torch's antialiased bicubic."""
+    h, w = arr.shape[0], arr.shape[1]
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    x = arr.float().permute(2, 0, 1)[None]
+    y = F.interpolate(x, size=(nh, nw), mode="bicubic", align_corners=False,
+                      antialias=True)
+    return y[0].permute(1, 2, 0)
 
 
 @dataclasses.dataclass
@@ -134,13 +144,18 @@ class VideoDriver:
             indices = list(range(opt.num_frames, 0, -1))
         else:
             indices = list(range(opt.continue_with, opt.num_frames + 1))
+        if opt.create_inconsistent and opt.inconsistent_batch > 1:
+            return self._run_batched(indices, progress)
         results: List[FrameResult] = []
+        scale = opt.scale_factor
         last_stylized = None      # the recurrence carry, a device tensor
         if opt.continue_with > 1 and not opt.backward:
             prev_path = self._out_path(opt.continue_with - 1)
             if os.path.exists(prev_path):
                 last_stylized = torch.from_numpy(io.load_image(prev_path)).to(
                     self.engine.device)
+                if scale != 1.0:
+                    last_stylized = resize_bicubic(last_stylized, scale)
                 if self.flow_provider is not None:
                     # prime the provider with the last INPUT frame so the
                     # resumed frame gets a real flow/cert pair
@@ -149,19 +164,66 @@ class VideoDriver:
                         self.flow_provider(prev_in)
                     else:
                         last_stylized = None   # no input frame: cold start
+        # feature reuse (--feature_reuse K): a keyframe once K-1 reuse
+        # frames have passed since the last full forward
+        reuse_k = opt.feature_reuse if self.engine.supports_feature_reuse else 0
+        delta = None
+        key_age = 0
+        # the uint8 frame comes out of the step itself when the output is
+        # the stylized frame as it is
+        fused_u8 = scale == 1.0 and reuse_k <= 1
         pre_eroded = bool(getattr(self.flow_provider, "erode_window", None))
+        if pre_eroded and reuse_k > 1:
+            # the reuse steps apply the engine's own min-filter: a provider
+            # that already eroded the certainty would erode it twice
+            raise ValueError("flow_provider.erode_window and feature_reuse > 1 "
+                             "are mutually exclusive")
         writer = pipeline.AsyncWriter()
         try:
             for i, (frame, flow_cert) in pipeline.Prefetcher(self._load_inputs, indices):
                 t0 = time.monotonic()
+                content = frame
+                out_u8 = None
+                if scale != 1.0:
+                    content = resize_bicubic(frame.float() / 255.0, scale)
                 if flow_cert is None or last_stylized is None:
-                    stylized, out_u8 = self.engine.stylize_first(frame, emit_u8=True)
+                    if fused_u8:
+                        stylized, out_u8 = self.engine.stylize_first(content, emit_u8=True)
+                    else:
+                        stylized = self.engine.stylize_first(content)
+                    delta = None
                 else:
                     flow, cert, *rest = flow_cert
                     band_hint = rest[0] if rest else None
-                    stylized, out_u8 = self.engine.stylize_next(
-                        frame, last_stylized, flow, cert, band_hint,
-                        emit_u8=True, pre_eroded=pre_eroded)
+                    if scale != 1.0:
+                        flow = resize_bicubic(self.engine._tensor(flow), scale) * scale
+                        cert = resize_bicubic(self.engine._tensor(cert)[..., None],
+                                              scale)[..., 0]
+                        if band_hint is not None:
+                            band_hint = warp.flow_band(band_hint * scale)
+                    if reuse_k > 1:
+                        if delta is None or key_age >= reuse_k - 1:
+                            stylized, delta = self.engine.stylize_next_full(
+                                content, last_stylized, flow, cert, band_hint)
+                            key_age = 0
+                        else:
+                            stylized, delta = self.engine.stylize_next_reuse(
+                                content, last_stylized, flow, cert, delta, band_hint)
+                            key_age += 1
+                    elif fused_u8:
+                        stylized, out_u8 = self.engine.stylize_next(
+                            content, last_stylized, flow, cert, band_hint,
+                            emit_u8=True, pre_eroded=pre_eroded)
+                    else:
+                        stylized = self.engine.stylize_next(
+                            content, last_stylized, flow, cert, band_hint,
+                            pre_eroded=pre_eroded)
+                if out_u8 is None:
+                    out_full = stylized
+                    if scale != 1.0:
+                        out_full = resize_bicubic(stylized,
+                                                  frame.shape[0] / stylized.shape[0])
+                    out_u8 = quantize_u8(out_full)
                 dt = time.monotonic() - t0
                 out_path = self._out_path(i)
                 # the writer thread downloads the uint8 frame (its copy
@@ -171,6 +233,39 @@ class VideoDriver:
                     print(f"frame {i}: {dt * 1000:.1f} ms -> {out_path}")
                 last_stylized = stylized
                 results.append(FrameResult(i, out_path, dt))
+        finally:
+            writer.close()
+        return results
+
+    def _run_batched(self, indices, progress: bool) -> List[FrameResult]:
+        """create_inconsistent throughput mode: the frames are independent,
+        so `inconsistent_batch` of them go through one forward (one launch
+        of each block-conv kernel for the whole batch)."""
+        results: List[FrameResult] = []
+        batch_n = self.opt.inconsistent_batch
+        pending: List = []
+        writer = pipeline.AsyncWriter()
+
+        def flush():
+            if not pending:
+                return
+            t0 = time.monotonic()
+            outs = self.engine.stylize_batch([f for _, f in pending])
+            dt = (time.monotonic() - t0) / len(pending)
+            for (idx, _), out in zip(pending, outs):
+                path = self._out_path(idx)
+                writer.put(lambda p=path, s=quantize_u8(out): self.save(p, s.cpu().numpy()))
+                if progress:
+                    print(f"frame {idx}: {dt * 1000:.1f} ms -> {path}")
+                results.append(FrameResult(idx, path, dt))
+            pending.clear()
+
+        try:
+            for i, (frame, _) in pipeline.Prefetcher(self._load_inputs, indices):
+                pending.append((i, frame))
+                if len(pending) >= batch_n:
+                    flush()
+            flush()
         finally:
             writer.close()
         return results

@@ -114,9 +114,7 @@ def test_file_pattern_flow_mode_matches_jax_cli(fixture, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    for extra in (["--phase_resident"], ["--feature_reuse", "2"], ["--evaluate"],
-                  ["--scale_factor", "0.5"],
-                  ["--create_inconsistent", "--inconsistent_batch", "4"]):
+    for extra in (["--evaluate"],):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port_cli(os.path.join(tmp_path, "f_%05d.ppm"), str(tmp_path), *extra)
 
@@ -127,3 +125,36 @@ def test_cuda_device_without_card_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(["--input_pattern", os.path.join(tmp_path, "f_%05d.ppm"),
                    "--model_vid", "demo", "--create_inconsistent"])
+
+
+def _entry_points():
+    """Each library entry point that places tensors, called without a
+    device (the parameters it is handed live on the CPU)."""
+    from fast_artistic_videos_tpu_torch.flow import estimator, provider
+    from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
+    from fast_artistic_videos_tpu_torch.video.engine import StylizerEngine
+
+    spec, params, _ = checkpoint.load_model("demo", device="cpu")
+    fparams = estimator.load_params("bundled", device="cpu")
+    return {
+        "StylizerEngine": lambda: StylizerEngine(lambda p, x: x, params),
+        "FlowEstimator": lambda: estimator.FlowEstimator(fparams),
+        "load_params": lambda: estimator.load_params("bundled"),
+        "StreamingFlowProvider": lambda: provider.StreamingFlowProvider(fparams),
+        "BatchedStreamingFlowProvider": lambda: provider.BatchedStreamingFlowProvider(fparams),
+        "load_model": lambda: checkpoint.load_model("demo"),
+        "params_from_numpy": lambda: checkpoint.params_from_numpy({"b": np.zeros(3)}),
+        "init_params": lambda: stylizer.init_params(torch.Generator(), spec),
+    }
+
+
+@pytest.mark.parametrize("name", ["StylizerEngine", "FlowEstimator", "load_params",
+                                  "StreamingFlowProvider", "BatchedStreamingFlowProvider",
+                                  "load_model", "params_from_numpy", "init_params"])
+def test_entry_points_default_to_the_card(name):
+    """Library entry points run on the card unless asked for the CPU: on a
+    host without one the default raises and names device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
+        _entry_points()[name]()

@@ -26,11 +26,11 @@ from tests.test_torch_stylizer import numpy_params, parse_both
 @pytest.fixture(scope="module")
 def engines():
     spec, pj, _ = jckpt.load_model("demo")
-    tspec, pt, _ = tckpt.load_model("demo")
+    tspec, pt, _ = tckpt.load_model("demo", device="cpu")
     je = jeng.StylizerEngine(lambda p, x: jsty.apply(p, spec, x), pj,
                              stride_multiple=spec.total_stride)
     te = teng.StylizerEngine(lambda p, x: tsty.apply(p, tspec, x), pt,
-                             stride_multiple=tspec.total_stride)
+                             stride_multiple=tspec.total_stride, device="cpu")
     return je, te
 
 
@@ -89,14 +89,14 @@ def test_recurrence_on_device_tensors(engines):
 def test_image_model_first_frame_matches_jax():
     """--model_img: frame 1 goes through a separate 3-channel image model."""
     spec_v, pj, _ = jckpt.load_model("demo")
-    tspec_v, pt, _ = tckpt.load_model("demo")
+    tspec_v, pt, _ = tckpt.load_model("demo", device="cpu")
     spec_i, tspec_i = parse_both("c9s1-8,d16,R16,u8,c9s1-3", in_channels=3)
     pij = numpy_params(spec_i, 8)
-    pit = tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pij))
+    pit = tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pij), device="cpu")
     je = jeng.StylizerEngine(lambda p, x: jsty.apply(p, spec_v, x), pj,
                              lambda p, x: jsty.apply(p, spec_i, x), pij)
     te = teng.StylizerEngine(lambda p, x: tsty.apply(p, tspec_v, x), pt,
-                             lambda p, x: tsty.apply(p, tspec_i, x), pit)
+                             lambda p, x: tsty.apply(p, tspec_i, x), pit, device="cpu")
     content, _, _, _ = _inputs(7, 48, 64)
     want = je.stylize_first(content)
     got = te.stylize_first(content)
@@ -115,9 +115,10 @@ def test_min_filter_matches_jax():
 
 
 def test_uniform_random_fill_mask_and_statistics():
-    spec, pt, _ = tckpt.load_model("demo")
+    spec, pt, _ = tckpt.load_model("demo", device="cpu")
     cfg = teng.EngineConfig(fill_occlusions="uniform-random", seed=5)
-    te = teng.StylizerEngine(lambda p, x: tsty.apply(p, spec, x), pt, config=cfg)
+    te = teng.StylizerEngine(lambda p, x: tsty.apply(p, spec, x), pt, config=cfg,
+                             device="cpu")
     content, prev, _, _ = _inputs(4, 120, 160)
     cert = np.zeros((120, 160), np.float32)
     cert[:, :80] = 1.0
@@ -132,7 +133,8 @@ def test_uniform_random_fill_mask_and_statistics():
     assert abs(noise.std() - 255.0 / np.sqrt(12.0)) < 3.0
     np.testing.assert_array_equal(x[..., 6], cert)
     # the generator is seeded by EngineConfig.seed: same seed, same fill
-    te2 = teng.StylizerEngine(lambda p, x: tsty.apply(p, spec, x), pt, config=cfg)
+    te2 = teng.StylizerEngine(lambda p, x: tsty.apply(p, spec, x), pt, config=cfg,
+                             device="cpu")
     x2 = te2._assemble(torch.from_numpy(content), torch.from_numpy(prev),
                        torch.from_numpy(cert))[0].numpy()
     np.testing.assert_array_equal(x, x2)

@@ -35,7 +35,7 @@ def _pan(seed, n, h, w, step):
 @pytest.fixture(scope="module")
 def estimators():
     jp = jest.load_params("bundled")
-    return jest.FlowEstimator(jp), test_.FlowEstimator(test_.load_params("bundled"))
+    return jest.FlowEstimator(jp), test_.FlowEstimator(test_.load_params("bundled", device="cpu"), device="cpu")
 
 
 # the provider's form first (its compile is shared with the provider test);

@@ -20,7 +20,7 @@ from tests.test_torch_stylizer import jax_apply, numpy_params, parse_both
 
 
 def _params(pj):
-    return tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj))
+    return tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), device="cpu")
 
 
 def _close(got, want, rtol):
@@ -67,7 +67,7 @@ def test_demo_apply_kernel_path_matches_jax_full_front():
     Pallas front and chain themselves are held against the port above and
     in test_torch_rblock.py."""
     spec, pj, _ = jckpt.load_model("demo")
-    tspec = tckpt.load_model("demo")[0]
+    tspec = tckpt.load_model("demo", device="cpu")[0]
     pt = _params(pj)
     x = (np.random.default_rng(4).standard_normal((1, 48, 64, 7)) * 60).astype(np.float32)
     want = np.asarray(jax_apply(pj, spec, x))

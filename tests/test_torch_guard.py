@@ -27,9 +27,9 @@ for name in names:
     importlib.import_module(name)
 from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
 from fast_artistic_videos_tpu_torch.video.engine import StylizerEngine
-spec, params, _ = checkpoint.load_model("demo")
+spec, params, _ = checkpoint.load_model("demo", device="cpu")
 eng = StylizerEngine(lambda p, x: stylizer.apply(p, spec, x), params,
-                     stride_multiple=spec.total_stride)
+                     stride_multiple=spec.total_stride, device="cpu")
 frame = (np.random.default_rng(0).random((48, 52, 3)) * 255).astype(np.uint8)
 out = eng.stylize_first(frame)
 flow = torch.zeros(48, 52, 2)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 banded warp, K2 chain conv, K3 front conv,
-K5 strip warp) against their plain PyTorch versions on a card, and the stylizer's kernel
-path against its plain (cuDNN) path. Needs a CUDA card: every test skips
+K4 block conv, K5 strip warp) against their plain PyTorch versions on a
+card, and the stylizer's kernel paths (batch 1: K3 + K2; batch > 1: K4)
+against its plain (cuDNN) path. Needs a CUDA card: every test skips
 without one. This file imports no jax, so on the card host it runs alone:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
-from fast_artistic_videos_tpu_torch.ops import front_kernel, rblock_kernel, warp_kernel
+from fast_artistic_videos_tpu_torch.ops import conv_kernel, front_kernel, rblock_kernel
+from fast_artistic_videos_tpu_torch.ops import warp_kernel
 from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
 from fast_artistic_videos_tpu_torch.video import vr_geometry as vr
 
@@ -86,6 +88,30 @@ def test_front_conv_kernel_matches_plain(cuda, k, stride, pad, cin, cout):
         assert ((g - ref).norm() / ref.norm()).item() <= 1e-4
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("n,cout,same,relu", [
+    (1, 128, True, False), (3, 128, False, True), (1, 256, False, False), (3, 256, True, True)])
+def test_block_conv_kernel_matches_plain(cuda, dtype, tol, n, cout, same, relu):
+    """K4, one launch for the whole batch, against its plain version
+    (relative L2: 1e-4 float32, 1e-2 bfloat16)."""
+    rng = np.random.default_rng(7)
+    h, w, c = 21, 35, 128
+    x = _t(rng.standard_normal((n, h, w, c)), cuda, dtype)
+    wt = _t(rng.standard_normal((cout, c, 3, 3)) / np.sqrt(9 * c), cuda)
+    b = _t(rng.standard_normal(cout) * 0.1, cuda)
+    fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
+    before = conv_kernel.KERNEL.launches
+    got = fn(x, wt, b, relu)
+    assert conv_kernel.KERNEL.launches == before + 1
+    want = conv_kernel.conv3x3_plain(x, wt, b, relu, 1 if same else 0)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert got.shape == (n, h if same else h - 2, w if same else w - 2, cout)
+    g, ref = got.float(), want.float()
+    assert ((g - ref).norm() / ref.norm()).item() <= tol
+    if relu:
+        assert g.min().item() >= 0.0
+
+
 def _vr_maps(face, overlap):
     return [vr.perspective_warp_map_left(face, overlap, face),
             vr.perspective_warp_map_right(face, overlap, face),
@@ -117,10 +143,23 @@ def test_strip_warp_kernel_matches_plain(cuda, face, overlap, dtype, batch):
 def test_stylizer_kernel_path_matches_plain_path(cuda):
     spec, params, _ = checkpoint.load_model("demo", cuda)
     x = _t(np.random.default_rng(4).standard_normal((1, 96, 128, 7)) * 60, cuda)
-    before = (front_kernel.KERNEL.launches, rblock_kernel.KERNEL.launches)
+    kernels = (front_kernel.KERNEL, rblock_kernel.KERNEL, conv_kernel.KERNEL)
+    before = [k.launches for k in kernels]
     got = stylizer.apply(params, spec, x)                 # CUDA: kernels by default
-    assert (front_kernel.KERNEL.launches - before[0],
-            rblock_kernel.KERNEL.launches - before[1]) == (3, 10)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [3, 10, 0]
+    want = stylizer.apply(params, spec, x, fused=False)
+    assert (got - want).abs().max().item() / 255.0 <= 1e-3
+
+
+def test_stylizer_batched_kernel_path_matches_plain_path(cuda):
+    """Batch 3: the residual blocks go through K4 (10 launches, one per
+    conv for the whole batch), against the cuDNN path."""
+    spec, params, _ = checkpoint.load_model("demo", cuda)
+    x = _t(np.random.default_rng(8).standard_normal((3, 64, 96, 7)) * 60, cuda)
+    kernels = (front_kernel.KERNEL, rblock_kernel.KERNEL, conv_kernel.KERNEL)
+    before = [k.launches for k in kernels]
+    got = stylizer.apply(params, spec, x)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 10]
     want = stylizer.apply(params, spec, x, fused=False)
     assert (got - want).abs().max().item() / 255.0 <= 1e-3
 
@@ -183,3 +222,13 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         rblock_kernel.chain_conv(torch.zeros(8, 8, 4, device=cuda),
                                  torch.zeros(4, 5, 3, 3, device=cuda),
                                  torch.zeros(4, device=cuda))
+    w4, b4 = torch.zeros(128, 128, 3, 3, device=cuda), torch.zeros(128, device=cuda)
+    x4 = torch.zeros(2, 8, 8, 128, device=cuda)
+    with pytest.raises(TypeError):
+        conv_kernel.conv3x3(x4.half(), w4, b4)
+    with pytest.raises(ValueError):                         # not contiguous NHWC
+        conv_kernel.conv3x3(x4.permute(0, 2, 1, 3), w4, b4)
+    with pytest.raises(ValueError):                         # a 5x5 kernel
+        conv_kernel.conv3x3_valid(x4, torch.zeros(128, 128, 5, 5, device=cuda), b4)
+    with pytest.raises(ValueError):                         # weights on the CPU
+        conv_kernel.conv3x3(x4, w4.cpu(), b4)

@@ -103,7 +103,7 @@ ARCH = "c9s1-8,d16,d16,R16,R16,R16,u8,u8,c9s1-3"
 def test_fused_res_chain_matches_jax():
     spec = arch_dsl.parse_arch(ARCH, in_channels=7)
     pj = numpy_params(spec, 4)
-    pt = tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj))
+    pt = tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), device="cpu")
     rng = np.random.default_rng(4)
     x = rng.standard_normal((1, 27, 33, 16)).astype(np.float32)
     eff = np.stack([rng.random(16) + 0.5, rng.standard_normal(16) * 0.2]).astype(np.float32)
@@ -122,7 +122,7 @@ def test_apply_fused_chain_matches_jax_fused_rblocks():
     the JAX package's apply(fused_rblocks=True)."""
     spec, tspec = parse_both(ARCH, in_channels=7)
     pj = numpy_params(spec, 6)
-    pt = tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj))
+    pt = tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), device="cpu")
     x = (np.random.default_rng(6).standard_normal((1, 32, 40, 7)) * 60).astype(np.float32)
     want = np.asarray(jax_apply(pj, spec, x, fused_rblocks=True))
     got = tsty.apply(pt, tspec, torch.from_numpy(x), fused=True).numpy()

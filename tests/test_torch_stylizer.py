@@ -66,7 +66,7 @@ def jax_apply(params, spec, x, optimize=False, **kw):
 
 
 def _to_torch(params_jax):
-    return tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, params_jax))
+    return tckpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, params_jax), device="cpu")
 
 
 def _run_both(spec, tspec, params_jax, x, dtype=None, **tkw):
@@ -82,7 +82,7 @@ def _vgg_input(rng, n, h, w, c=7):
 
 def test_demo_checkpoint_f32():
     spec, params, _ = jckpt.load_model("demo")
-    tspec = tckpt.load_model("demo")[0]
+    tspec = tckpt.load_model("demo", device="cpu")[0]
     x = _vgg_input(np.random.default_rng(0), 1, 48, 64)
     got, want = _run_both(spec, tspec, params, x)
     assert got.shape == want.shape == (1, 48, 64, 3)
@@ -91,7 +91,7 @@ def test_demo_checkpoint_f32():
 
 def test_demo_checkpoint_bf16():
     spec, params, _ = jckpt.load_model("demo")
-    tspec = tckpt.load_model("demo")[0]
+    tspec = tckpt.load_model("demo", device="cpu")[0]
     x = _vgg_input(np.random.default_rng(1), 1, 48, 56)
     got, want = _run_both(spec, tspec, params, x, dtype=torch.bfloat16)
     assert np.abs(got - want).mean() / 255.0 < 1e-2
@@ -99,7 +99,7 @@ def test_demo_checkpoint_bf16():
 
 def test_port_loader_matches_jax_loader():
     spec_j, params_j, meta_j = jckpt.load_model("demo")
-    spec_t, params_t, meta_t = tckpt.load_model("demo")
+    spec_t, params_t, meta_t = tckpt.load_model("demo", device="cpu")
     assert isinstance(spec_t, tarch.ModelSpec)
     assert same_spec(spec_t, spec_j) and meta_t == meta_j
     w_j = np.asarray(params_j["layer00"]["w"])                  # HWIO
@@ -117,7 +117,7 @@ def test_explicit_layers_meta(tmp_path):
             "tanh_constant": 150.0, "input_pad": 0, "total_stride": 2}
     path = os.path.join(tmp_path, "m.npz")
     jckpt.save_model(path, params, meta)
-    spec_t, params_t, _ = tckpt.load_model(path)
+    spec_t, params_t, _ = tckpt.load_model(path, device="cpu")
     assert spec_t == tspec and same_spec(spec_t, jckpt.load_model(path)[0])
     x = _vgg_input(np.random.default_rng(3), 1, 16, 20)
     got = tsty.apply(params_t, spec_t, torch.from_numpy(x)).numpy()

@@ -165,11 +165,11 @@ def test_strip_warp_rejects_nonseparable_maps():
 @pytest.mark.parametrize("erode", [True, False])
 def test_stylize_with_prior_matches_jax(erode):
     spec, pj, _ = jckpt.load_model("demo")
-    tspec, pt, _ = tckpt.load_model("demo")
+    tspec, pt, _ = tckpt.load_model("demo", device="cpu")
     je = jeng.StylizerEngine(lambda p, x: jsty.apply(p, spec, x), pj,
                              stride_multiple=spec.total_stride)
     te = teng.StylizerEngine(lambda p, x: tsty.apply(p, tspec, x), pt,
-                             stride_multiple=tspec.total_stride)
+                             stride_multiple=tspec.total_stride, device="cpu")
     rng = np.random.default_rng(7)
     content = rng.random((46, 50, 3)).astype(np.float32)    # stride padding
     prior = rng.random((46, 50, 3)).astype(np.float32)
@@ -188,7 +188,7 @@ def test_stylize_with_prior_matches_jax(erode):
 @pytest.fixture(scope="module")
 def estimators():
     return (jest.FlowEstimator(jest.load_params("bundled")),
-            test_.FlowEstimator(test_.load_params("bundled")))
+            test_.FlowEstimator(test_.load_params("bundled", device="cpu"), device="cpu"))
 
 
 @pytest.mark.parametrize("fast_check", [False, True])
@@ -283,7 +283,7 @@ def _echo_engines():
     je = jeng.StylizerEngine(lambda p, x: x[..., 3:6], params_vid=None, stride_multiple=1,
                              config=jeng.EngineConfig(**cfg))
     te = teng.StylizerEngine(lambda p, x: x[..., 3:6], params_vid=None, stride_multiple=1,
-                             config=teng.EngineConfig(**cfg))
+                             config=teng.EngineConfig(**cfg), device="cpu")
     return je, te
 
 

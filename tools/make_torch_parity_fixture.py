@@ -6,7 +6,11 @@ synthetic pans and the JAX package's CLI outputs for them.
     5-frame 96x128 pan;
   * tests/fixtures/torch_parity_vr.npz: the VR CLI (stylize_vr_video) on 3
     frames of 6 cube faces of 64x64 px, overlap 16: six pan streams, one per
-    face, cut side by side from one wide pan.
+    face, cut side by side from one wide pan;
+  * tests/fixtures/torch_parity_batch.npz: the 2D CLI's other modes on a
+    4-frame 84x112 pan (at least 41 px per side after --scale_factor 0.5):
+    --create_inconsistent --inconsistent_batch 2, --feature_reuse 3,
+    --scale_factor 0.5 and --phase_resident (BATCH_CASES).
 
 The JAX CLIs run on the CPU with the bundled demo model and flow estimator
 (--model_vid demo --flow_model bundled --flow_scale 0.5, float32).
@@ -25,6 +29,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "fixtures", "torch_parity_demo.npz")
 OUT_VR = os.path.join(ROOT, "tests", "fixtures", "torch_parity_vr.npz")
+OUT_BATCH = os.path.join(ROOT, "tests", "fixtures", "torch_parity_batch.npz")
 
 SEED = 20261016
 FRAMES, H, W = 5, 96, 128
@@ -32,6 +37,15 @@ STEP = (3, 2)            # pan per frame (dx, dy) in pixels
 VR_SEED = 20261017
 VR_FRAMES, VR_FACE, VR_OVERLAP = 3, 64, 16
 VR_STEP = (4, 1)
+BATCH_SEED = 20261018
+BATCH_FRAMES, BATCH_H, BATCH_W = 4, 84, 112
+# name -> (extra CLI flags, frames run)
+BATCH_CASES = {
+    "batch": (["--create_inconsistent", "--inconsistent_batch", "2"], 3),
+    "reuse": (["--feature_reuse", "3"], 4),
+    "scale": (["--scale_factor", "0.5"], 3),
+    "phase": (["--phase_resident"], 3),
+}
 VR_ARGS = ["--model_vid", "demo", "--flow_model", "bundled", "--flow_scale", "0.5",
            "--overlap_pixel_w", str(VR_OVERLAP), "--overlap_pixel_h", str(VR_OVERLAP)]
 
@@ -55,8 +69,9 @@ def pan_frames(seed: int, n: int, h: int, w: int, step=STEP) -> np.ndarray:
                      for t in range(n)])
 
 
-def run_jax_cli(frames: np.ndarray, workdir: str) -> np.ndarray:
-    """The JAX CLI's uint8 outputs for `frames` (the zero-download path)."""
+def run_jax_cli(frames: np.ndarray, workdir: str, extra=()) -> np.ndarray:
+    """The JAX CLI's uint8 outputs for `frames` (the zero-download path,
+    plus the flags `extra`)."""
     from fast_artistic_videos_tpu.cli import stylize_video
     from fast_artistic_videos_tpu.core import io
 
@@ -66,7 +81,7 @@ def run_jax_cli(frames: np.ndarray, workdir: str) -> np.ndarray:
     stylize_video.main([
         "--input_pattern", os.path.join(workdir, "frame_%05d.ppm"),
         "--model_vid", "demo", "--flow_model", "bundled", "--flow_scale", "0.5",
-        "--output_prefix", prefix])
+        "--output_prefix", prefix, "--num_frames", str(len(frames)), *extra])
     return np.stack([io.load_image_u8(f"{prefix}-{t:05d}.png")
                      for t in range(1, len(frames) + 1)])
 
@@ -131,9 +146,23 @@ def write_vr():
     print(f"wrote {OUT_VR} ({os.path.getsize(OUT_VR)} bytes)")
 
 
+def write_batch():
+    frames = pan_frames(BATCH_SEED, BATCH_FRAMES, BATCH_H, BATCH_W)
+    out = {}
+    for name, (extra, n) in BATCH_CASES.items():
+        with tempfile.TemporaryDirectory() as d:
+            out[f"outputs_{name}"] = run_jax_cli(frames[:n], d, extra)
+        out[f"args_{name}"] = np.asarray(extra)
+    os.makedirs(os.path.dirname(OUT_BATCH), exist_ok=True)
+    np.savez_compressed(OUT_BATCH, seed=np.int64(BATCH_SEED), step=np.asarray(STEP),
+                        frames=frames, **out)
+    print(f"wrote {OUT_BATCH} ({os.path.getsize(OUT_BATCH)} bytes)")
+
+
 def main():
     write_demo()
     write_vr()
+    write_batch()
     return 0
 
 
