@@ -6,21 +6,29 @@ Phases (any failure exits non-zero, before the result line is printed):
 
   1. the device, torch and CUDA versions, and the card's name and power
      limit as nvidia-smi reports them;
-  2. build the hand-written kernels from csrc/ (nvcc, sm_90a);
+  2. build the hand-written kernels from csrc/ (nvcc, sm_90a), and count
+     the tensor-core instructions (HGMMA / HMMA) in the SASS of conv_tc.cu's
+     kernel (cuobjdump): it fails without them;
   3. each kernel against its plain PyTorch version at the shapes the main
      paths give it (kernel, plain and library-call times: CUDA events,
-     median of 20), with the least time the card could take (bound_ms);
+     median of 20; the kernel's own device time: torch.profiler), with the
+     least time the card could take (bound_ms). K2 and K4 in bfloat16 take
+     the tensor-core route (conv_tc.cu), in float32 the CUDA-core one
+     (conv_in.cu); each case checks that its launch took the route that
+     ops/_conv_in.py's rule names;
   4. the 2D main path: the streaming stylizer (bundled demo model, bundled
      flow estimator, flow at half resolution) on 12 seeded 1080p pan
      frames, float32 then bfloat16, through the CLI's build functions and
      VideoDriver.run; the launch counters must rise by the expected amount
-     per frame and every output must be finite;
+     per frame, every K2 launch of the bfloat16 run and none of the
+     float32 run must take the tensor-core route, and every output must be
+     finite;
   5. the port on the card against the JAX package's committed 2D CLI output
      (tests/fixtures/torch_parity_demo.npz), mean-abs <= 1e-2 per frame;
   6. the VR main path: the spherical stylizer on 6 frames of six seeded
      922x922 pan faces (overlap 128), float32 then bfloat16, through
      cli/stylize_vr_video.py's build functions and VRDriver.run, with exact
-     launch counts, finite faces, fps with and without PNG encoding, stage
+     launch counts (and routes, as in phase 4), finite faces, fps with and without PNG encoding, stage
      times, the device's busy share (torch.profiler), and one face step
      through the kernels against the plain versions;
   7. the port's VR CLI on the card against the JAX package's committed VR
@@ -28,11 +36,12 @@ Phases (any failure exits non-zero, before the result line is printed):
      face;
   8. the batched path: --create_inconsistent --inconsistent_batch 4 on 8 of
      the 1080p pan frames, float32 then bfloat16, with exact launch counts
-     (K4 20, the other kernels 0), finite outputs, fps with and without PNG
+     (K4 20, the other kernels 0; K4 on the tensor cores in bfloat16 only),
+     finite outputs, fps with and without PNG
      encoding, and the batched frames against the same frames stylized one
      at a time through K3 and K2 (mean-abs <= 1e-2);
   9. feature reuse (--feature_reuse 3) on the 12 pan frames, float32, with
-     exact K1/K2/K3 counts, frames 1-2 within one uint8 step of phase 4's
+     exact K1/K2/K3 counts (no tensor-core launch), frames 1-2 within one uint8 step of phase 4's
      exact run and the reuse frames within mean-abs 0.05 of it (the JAX
      package's bound on how far the reuse approximation drifts from the
      exact run, not a correctness check: phase 10 holds the reuse mode
@@ -45,8 +54,10 @@ Phases (any failure exits non-zero, before the result line is printed):
 The last lines of standard output are the card's name and power limit, a
 JSON line with one row per kernel (name, route, source, the TPU kernel it
 replaces, launches in its main path's float32 run, max abs error, kernel,
-plain, bound and library-call milliseconds) and {"ok": true, "device":
-{...}}. float32 runs with TF32 off.
+device, plain, bound and library-call milliseconds, and under "bfloat16"
+the same figures of its bfloat16 form: route, source, C entry, launches in
+the bfloat16 run and how many of them took the tensor cores) and {"ok":
+true, "device": {...}}. float32 runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -70,6 +81,9 @@ VR_PAN = (8, 2)
 # bytes over the memory rate and its operations over the rate of its type
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the kernels with a tensor-core route (K2, K4): bfloat16 at their widths
+TC_KERNELS = ("res_chain_conv", "conv3x3")
+TC_SOURCE = "fast_artistic_videos_tpu_torch/csrc/conv_tc.cu"
 
 
 def log(*a):
@@ -146,6 +160,59 @@ def _dname(torch, dtype):
     return "bfloat16" if dtype == torch.bfloat16 else "float32"
 
 
+def _reset(kernels):
+    for k in kernels.values():
+        k.reset()
+
+
+def _check_routes(kernels, launches, dtype, where):
+    """Every K2/K4 launch of a bfloat16 run took the tensor-core route and
+    none of a float32 run did (the rule of ops/_conv_in.py at the stylizer's
+    128-channel widths); returns the tensor-core counts."""
+    from fast_artistic_videos_tpu_torch.ops import _conv_in
+
+    tc = {name: k.routes.get(_conv_in.TC_ENTRY, 0) for name, k in kernels.items()}
+    want = {name: (launches[name] if dtype == "bfloat16" and name in TC_KERNELS else 0)
+            for name in kernels}
+    log(f"{where} {dtype}: tensor-core launches {tc}, expected {want}")
+    if tc != want:
+        raise AssertionError(f"{where} {dtype}: tensor-core launches {tc} != {want}")
+    return tc
+
+
+def _profile_ms(torch, fn, name, n=20):
+    """The kernel's own device time per call (ms): torch.profiler over n
+    calls, summed over the kernels whose name contains `name`."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return _device_ms(torch, prof, name) / n
+
+
+def sass_mma_counts(lib_path):
+    """{kernel symbol: (HGMMA, HMMA)} of the kernels of conv_tc.cu in the
+    built library's SASS (cuobjdump)."""
+    import re
+
+    from fast_artistic_videos_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
+    counts = {}
+    for chunk in out.stdout.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if "conv_tc_kernel" in name:
+            counts[name] = (len(re.findall(r"\bHGMMA\b", chunk)),
+                            len(re.findall(r"\bHMMA\b", chunk)))
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -166,6 +233,8 @@ def check_kernels(torch):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ms = _time_ms(torch, lambda: warp_kernel.warp_banded(img, flow, band))
+        dev_ms = _profile_ms(torch, lambda: warp_kernel.warp_banded(img, flow, band),
+                             "warp_banded_kernel")
         plain_ms = _time_ms(torch, lambda: warp_kernel.warp_banded_plain(img, flow, band))
         # each input read once (image, flow), the output written once; about
         # 6 multiply-adds per output element
@@ -186,12 +255,13 @@ def check_kernels(torch):
                 src, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
             lib_txt = f" grid_sample {lib_ms:.4f} ms"
         log(f"K1 warp {tuple(shape)} band {band} {dtype}: max_abs_err {err:.3g} "
-            f"(tol {tol:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib_txt} "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"(tol {tol:g}) kernel {ms:.4f} ms (device {dev_ms:.4f} ms, profiler) plain "
+            f"{plain_ms:.4f} ms{lib_txt} bound {b_ms:.4f} ms ({b_by})")
         if not err <= tol:
             raise AssertionError(f"K1 warp {shape} band {band} {dtype}: err {err}")
         res["warp_banded"].append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype,
-                                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                       device_ms=dev_ms, entry="fav_warp_banded"))
 
     f32, bf16 = torch.float32, torch.bfloat16
     warp_case((1, 1080, 1920, 3), 16, f32, 1e-5, library=True)   # engine prior warp
@@ -216,9 +286,14 @@ def check_kernels(torch):
                              torch.randn(cin, generator=g) * 0.1]).to(dev)
         s = torch.randn(h + 4, w + 4, cin, generator=g).to(dev, dtype) if skip else None
         kw = dict(stride=stride, pad=pad, eff=e, relu=relu, skip=s, emit_input=emit)
+        tc = _conv_in.tensor_core_route(dtype, k, k, stride, pad, cin, cout)
+        entry = _conv_in.TC_ENTRY if tc else "fav_conv_in"
+        before = kernel.routes.get(entry, 0)
         got = _conv_in.conv_in(kernel, x, wt, b, **kw)
         want = _conv_in.conv_in_plain(x, wt, b, **kw)
         torch.cuda.synchronize()
+        if kernel.routes.get(entry, 0) != before + 1:
+            raise AssertionError(f"{kernel.name} {dtype}: the launch did not take {entry}")
         y, yp = got[0].float(), want[0].float()
         rel = ((y - yp).norm() / yp.norm()).item()
         # statistics as the instance norm reads them: mean error in units of
@@ -235,6 +310,8 @@ def check_kernels(torch):
         err = (y - yp).abs().max().item()
         tol = 1e-4 if dtype == f32 else 1e-2
         ms = _time_ms(torch, lambda: _conv_in.conv_in(kernel, x, wt, b, **kw))
+        dev_ms = _profile_ms(torch, lambda: _conv_in.conv_in(kernel, x, wt, b, **kw),
+                             "conv_tc_kernel" if tc else "conv_in_kernel")
         plain_ms = _time_ms(torch, lambda: _conv_in.conv_in_plain(x, wt, b, **kw))
         # the library yardstick: the convolution alone (cuDNN), without the
         # fused prologue and statistics
@@ -246,14 +323,15 @@ def check_kernels(torch):
         b_ms, b_by = bound(nbytes, 2 * y.shape[0] * y.shape[1] * cout * cin * k * k,
                            _dname(torch, dtype))
         log(f"{kernel.name} ({h},{w},{cin})->{cout} k{k} s{stride} p{pad} eff={eff} "
-            f"relu={relu} skip={skip} emit={emit} {dtype}: rel_l2 {rel:.3g} "
+            f"relu={relu} skip={skip} emit={emit} {dtype} via {entry}: rel_l2 {rel:.3g} "
             f"stats {st:.3g} emit_err {a_err:.3g} max_abs {err:.3g} (tol {tol:g}) "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms conv2d {lib_ms:.3f} ms "
-            f"bound {b_ms:.3f} ms ({b_by})")
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, profiler) plain {plain_ms:.4f} ms "
+            f"conv2d {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
         if not (rel <= tol and st <= tol and a_err <= tol):
             raise AssertionError(f"{kernel.name} mismatch: rel {rel} stats {st} a {a_err}")
         res[kernel.name].append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype,
-                                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                     device_ms=dev_ms, entry=entry))
 
     K3, K2 = front_kernel.KERNEL, rblock_kernel.KERNEL
     for dtype in (f32, bf16):
@@ -277,7 +355,7 @@ def check_block_conv(torch, g):
     (pad 1) conv widening to 256 with the ReLU epilogue. Relative L2
     <= 1e-4 float32, <= 1e-2 bfloat16 (the conv_case tolerances); the
     library yardstick is F.conv2d (cuDNN) on the same NHWC data."""
-    from fast_artistic_videos_tpu_torch.ops import conv_kernel
+    from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel
 
     out = []
     for n, h, w, cin, cout, same, relu, dtype in (
@@ -290,14 +368,21 @@ def check_block_conv(torch, g):
         b = (torch.randn(cout, generator=g) * 0.1).cuda()
         pad = 1 if same else 0
         fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
+        tc = _conv_in.tensor_core_route(dtype, 3, 3, 1, pad, cin, cout)
+        entry = _conv_in.TC_ENTRY if tc else "fav_conv3x3"
+        before = conv_kernel.KERNEL.routes.get(entry, 0)
         got = fn(x, wt, b, relu)
         want = conv_kernel.conv3x3_plain(x, wt, b, relu, pad)
         torch.cuda.synchronize()
+        if conv_kernel.KERNEL.routes.get(entry, 0) != before + 1:
+            raise AssertionError(f"K4 {dtype}: the launch did not take {entry}")
         y, yp = got.float(), want.float()
         rel = ((y - yp).norm() / yp.norm()).item()
         err = (y - yp).abs().max().item()
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         ms = _time_ms(torch, lambda: fn(x, wt, b, relu))
+        dev_ms = _profile_ms(torch, lambda: fn(x, wt, b, relu),
+                             "conv_tc_kernel" if tc else "conv_in_kernel")
         plain_ms = _time_ms(torch, lambda: conv_kernel.conv3x3_plain(x, wt, b, relu, pad))
         xc, wc, bc = x.permute(0, 3, 1, 2), wt.to(dtype), b.to(dtype)
         lib_ms = _time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, bc, 1, pad))
@@ -306,13 +391,14 @@ def check_block_conv(torch, g):
         flops = 2 * y.shape[0] * y.shape[1] * y.shape[2] * cout * cin * 9
         b_ms, b_by = bound(nbytes, flops, _dname(torch, dtype))
         log(f"K4 block conv ({n},{h},{w},{cin})->{cout} {'SAME' if same else 'VALID'} "
-            f"relu={relu} {dtype}: rel_l2 {rel:.3g} max_abs {err:.3g} (tol {tol:g}) "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms conv2d {lib_ms:.3f} ms "
-            f"bound {b_ms:.3f} ms ({b_by}, {flops / 1e9:.1f} GFLOP)")
+            f"relu={relu} {dtype} via {entry}: rel_l2 {rel:.3g} max_abs {err:.3g} "
+            f"(tol {tol:g}) kernel {ms:.4f} ms (device {dev_ms:.4f} ms, profiler) plain "
+            f"{plain_ms:.4f} ms conv2d {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+            f"{flops / 1e9:.1f} GFLOP)")
         if not rel <= tol:
             raise AssertionError(f"K4 ({n},{h},{w},{cin})->{cout} {dtype}: rel {rel}")
         out.append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms))
+                        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms, entry=entry))
     return out
 
 
@@ -378,7 +464,8 @@ def check_strip_warp(torch, g):
             if not err <= 1e-5:
                 raise AssertionError(f"K5 {name} {dtype}: err {err}")
             out.append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms))
+                            bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                            entry="fav_strip_warp"))
     return out
 
 
@@ -452,8 +539,7 @@ def run_main_path(torch, workdir):
     for dtype in ("float32", "bfloat16"):
         prefix = os.path.join(workdir, dtype, "o")
         _drive(torch, _options(pattern, prefix, dtype, 3))     # warm-up, not counted
-        for k in kernels.values():
-            k.launches = 0
+        _reset(kernels)
         outs = []
         results, secs = _drive(torch, _options(pattern, prefix, dtype, n), record=outs)
         launches = {name: k.launches for name, k in kernels.items()}
@@ -463,6 +549,7 @@ def run_main_path(torch, workdir):
         if len(results) != n or launches != expect:
             raise AssertionError(f"main path {dtype}: {len(results)} frames, "
                                  f"launches {launches} != {expect}")
+        _check_routes(kernels, launches, dtype, "main path")
         for o in outs:
             if tuple(o.shape) != SIZE_1080 + (3,) or not bool(torch.isfinite(o).all()):
                 raise AssertionError(f"main path {dtype}: bad output {tuple(o.shape)}")
@@ -591,7 +678,7 @@ def _device_ms(torch, prof, name=""):
 
 
 def run_vr_path(torch, workdir):
-    """Phase 6. Returns (launches of the float32 run, {dtype: fps})."""
+    """Phase 6. Returns ({dtype: launches}, {dtype: fps})."""
     from fast_artistic_videos_tpu_torch.core import io
 
     kernels = _kernels()
@@ -613,8 +700,7 @@ def run_vr_path(torch, workdir):
     for dtype in ("float32", "bfloat16"):
         prefix = os.path.join(d, dtype, "o")
         _vr_drive(torch, _vr_options(pattern, prefix, dtype, 2))       # warm-up
-        for k in kernels.values():
-            k.launches = 0
+        _reset(kernels)
         outs = []
         faces_done, secs = _vr_drive(torch, _vr_options(pattern, prefix, dtype, n), record=outs)
         launches = {name: k.launches for name, k in kernels.items()}
@@ -624,6 +710,7 @@ def run_vr_path(torch, workdir):
         if faces_done != 6 * n or launches != expect:
             raise AssertionError(f"VR path {dtype}: {faces_done} faces, "
                                  f"launches {launches} != {expect}")
+        _check_routes(kernels, launches, dtype, "VR path")
         if len(outs) != 6 * n:
             raise AssertionError(f"VR path {dtype}: {len(outs)} stylized faces")
         for o in outs:
@@ -643,7 +730,7 @@ def run_vr_path(torch, workdir):
             f"time / wall time {busy:.3f} (torch.profiler kernel time over the wall time "
             f"of the unprofiled run)")
     vr_stage_times(torch, faces)
-    return counted["float32"], fps
+    return counted, fps
 
 
 def vr_stage_times(torch, faces):
@@ -758,14 +845,9 @@ def check_fixture(torch, workdir):
 BATCH_FRAMES, BATCH_N = 8, 4
 
 
-def _reset(kernels):
-    for k in kernels.values():
-        k.launches = 0
-
-
 def run_batched_path(torch, workdir):
-    """Phase 8 on the phase-4 frames. Returns (launches of the float32 run,
-    {dtype: fps}, {dtype: fps without PNG})."""
+    """Phase 8 on the phase-4 frames. Returns ({dtype: launches}, {dtype:
+    fps}, {dtype: fps without PNG})."""
     from fast_artistic_videos_tpu_torch.cli import stylize_video as cli
     from fast_artistic_videos_tpu_torch.core import config, io
 
@@ -793,6 +875,7 @@ def run_batched_path(torch, workdir):
         if len(results) != n or len(outs) != n or launches != expect:
             raise AssertionError(f"batched path {dtype}: {len(results)} frames, "
                                  f"launches {launches} != {expect}")
+        _check_routes(kernels, launches, dtype, "batched path")
         for o in outs:
             if tuple(o.shape) != SIZE_1080 + (3,) or not bool(torch.isfinite(o).all()):
                 raise AssertionError(f"batched path {dtype}: bad output {tuple(o.shape)}")
@@ -810,7 +893,7 @@ def run_batched_path(torch, workdir):
             f"vs one at a time (K3 + K2) mean-abs per frame max {err:.3g} (tol 1e-2)")
         if not err <= 1e-2:
             raise AssertionError(f"batched path {dtype}: batched vs unbatched {err}")
-    return counted["float32"], fps, fps_no_png
+    return counted, fps, fps_no_png
 
 
 def _reuse_schedule(n, k):
@@ -858,6 +941,7 @@ def run_reuse_and_scale(torch, workdir):
         f"{launches}, expected {expect}")
     if len(results) != n or launches != expect:
         raise AssertionError(f"feature reuse: launches {launches} != {expect}")
+    _check_routes(kernels, launches, "float32", "feature reuse")
     if not all(bool(torch.isfinite(o).all()) for o in outs):
         raise AssertionError("feature reuse: non-finite output")
     exact = [io.load_image_u8(os.path.join(workdir, "float32", f"o-{t:05d}.png"))
@@ -946,6 +1030,11 @@ def main() -> int:
     log(f"kernels built in {time.monotonic() - t0:.2f} s "
         f"(nvcc {_build.LIBRARY.build_seconds})")
     log(_build.LIBRARY.build_log.strip())
+    mma = sass_mma_counts(_build.LIBRARY.path())
+    for name, (hgmma, hmma) in mma.items():
+        log(f"SASS of {name}: {hgmma} HGMMA, {hmma} HMMA instructions (cuobjdump)")
+    if not mma or not all(hg + hm > 0 for hg, hm in mma.values()):
+        raise AssertionError(f"conv_tc.cu's kernel has no tensor-core instructions: {mma}")
     # 3. kernels
     res = check_kernels(torch)
     with tempfile.TemporaryDirectory() as work:
@@ -963,23 +1052,37 @@ def main() -> int:
     torch.cuda.synchronize()
 
     rows = []
-    # launches: K5 from the VR path's float32 run, K4 from the batched
-    # path's, the others from the 2D path's
+    # launches: K5 from the VR path's runs, K4 from the batched path's, the
+    # others from the 2D path's; float32 at the top level, bfloat16 beside
+    from fast_artistic_videos_tpu_torch.ops import _conv_in
+
     kernels = _kernels()
-    for name, launches in (("warp_banded", counted["float32"]),
-                           ("res_chain_conv", counted["float32"]),
-                           ("front_conv", counted["float32"]),
-                           ("conv3x3", b_counted),
+    for name, launches in (("warp_banded", counted), ("res_chain_conv", counted),
+                           ("front_conv", counted), ("conv3x3", b_counted),
                            ("strip_warp", vr_counted)):
         k = kernels[name]
         cases = res[k.name]
-        first = cases[0]              # the first case is the main-path shape in float32
+        # the first case of each dtype is the main path's shape
+        first = next(c for c in cases if c["dtype"] == torch.float32)
+        bf = next(c for c in cases if c["dtype"] == torch.bfloat16)
+        n_bf = launches["bfloat16"][k.name]
         rows.append({"name": k.name, "route": "cuda", "source": k.source,
-                     "replaces": k.replaces, "launches": launches[k.name],
+                     "replaces": k.replaces, "launches": launches["float32"][k.name],
                      "max_abs_err": max(c["err"] for c in cases if c["dtype"] == torch.float32),
-                     "ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "ms": first["ms"], "device_ms": first["device_ms"],
+                     "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-                     "library_ms": first["library_ms"]})
+                     "library_ms": first["library_ms"],
+                     "bfloat16": {
+                         "route": "cuda",
+                         "source": TC_SOURCE if bf["entry"] == _conv_in.TC_ENTRY else k.source,
+                         "entry": bf["entry"], "launches": n_bf,
+                         "tensor_core_launches": n_bf if name in TC_KERNELS else 0,
+                         "max_abs_err": max(c["err"] for c in cases
+                                            if c["dtype"] == torch.bfloat16),
+                         "ms": bf["ms"], "device_ms": bf["device_ms"],
+                         "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
+                         "bound_by": bf["bound_by"], "library_ms": bf["library_ms"]}})
     log(f"fps 1080p float32 {fps['float32']:.3f} bfloat16 {fps['bfloat16']:.3f}")
     log(f"fps VR {VR_FACE}^2 faces float32 {vr_fps['float32']:.3f} "
         f"({vr_fps['float32_no_png']:.3f} without PNG) bfloat16 {vr_fps['bfloat16']:.3f} "

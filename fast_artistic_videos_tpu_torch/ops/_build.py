@@ -39,6 +39,7 @@ SIGNATURES = {
     "fav_conv_in": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "fav_conv3x3": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "fav_strip_warp": [_P] * 6 + [_I] * 12 + [_P],
+    "fav_conv_tc": [_P] * 8 + [_I] * 9 + [_P],
 }
 
 
@@ -114,17 +115,25 @@ LIBRARY = Library()
 
 
 class Kernel:
-    """One kernel's launch counter plus the error check of its C entry.
+    """One kernel's launch counters plus the error check of its C entry.
 
     ``launches`` rises by one each time the wrapper launches the kernel and
-    at no other time; callers may reset it to 0."""
+    at no other time; ``routes[entry]`` counts the same launches by the C
+    entry that took them (K2 and K4 have a CUDA-core and a tensor-core
+    route). :meth:`reset` sets both to 0."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.routes = {}
         self._count_lock = threading.Lock()  # the flow thread launches too
+
+    def reset(self):
+        with self._count_lock:
+            self.launches = 0
+            self.routes = {}
 
     def call(self, entry: str, device: torch.device, *args):
         """Launch C entry `entry` on `device`, which is made current for the
@@ -139,6 +148,7 @@ class Kernel:
                                f"cudaError {err}")
         with self._count_lock:
             self.launches += 1
+            self.routes[entry] = self.routes.get(entry, 0) + 1
 
 
 def ptr(t) -> ctypes.c_void_p:

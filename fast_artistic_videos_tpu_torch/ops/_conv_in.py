@@ -1,5 +1,6 @@
 """The instance-norm conv shared by kernels K2 (``rblock_kernel``) and K3
-(``front_kernel``): wrapper of ``csrc/conv_in.cu`` and its plain version.
+(``front_kernel``): wrapper of ``csrc/conv_in.cu`` and ``csrc/conv_tc.cu``
+and its plain version.
 
     a = [+ skip[+2, +2]] ( [relu] ( eff[0] * x + eff[1] ) )   (prologue)
     y = conv(zero_pad(a), w, stride, pad) + b                  (f32 accumulate)
@@ -9,6 +10,14 @@ x is (H, W, Cin) NHWC in float32 or bfloat16; weights are OIHW (the port's
 parameter layout) and are cast to x's dtype, as the Pallas kernels do.
 Values are rounded to the storage dtype after the affine, after the skip
 add and at the store; the statistics are float32.
+
+Two routes, chosen by :func:`tensor_core_route`, a pure function of the
+dtype and the conv's shape: bfloat16 3x3 stride-1 convs with Cin % 64 == 0
+and Cout % 128 == 0 (every conv of the R128 residual chain, K2, and every
+block conv of K4) launch the tensor-core kernel ``conv_tc.cu`` (entry
+``fav_conv_tc``); float32, the front's convs (K3) and narrower widths
+launch the CUDA-core template ``conv_in.cu``. Either route raises on a
+failed launch; neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -17,6 +26,35 @@ import torch
 import torch.nn.functional as F
 
 from ._build import Kernel, ptr
+
+TC_ENTRY = "fav_conv_tc"
+# development switch of conv_tc.cu's product (its Form): 0 mma.sync, 1-2 wgmma
+_TC_FORM = 2
+
+
+def tensor_core_route(dtype, kh: int, kw: int, stride: int, pad: int, cin: int,
+                      cout: int) -> bool:
+    """True when a conv runs on the tensor-core kernel ``conv_tc.cu``:
+    bfloat16, 3x3, stride 1, pad 0 or 1, Cin % 64 == 0, Cout % 128 == 0."""
+    return (dtype == torch.bfloat16 and kh == 3 and kw == 3 and stride == 1
+            and pad in (0, 1) and cin % 64 == 0 and cout % 128 == 0)
+
+
+def launch_tc(kernel: Kernel, x, w, bt, y, *, pad: int, eff=None, relu: bool = False,
+              skip=None, stats=None, a=None, out_relu: bool = False):
+    """Launch ``fav_conv_tc`` for `kernel` on validated CUDA tensors: x
+    (N, H, W, Cin) bf16, w OIHW, bt the float32 bias rounded to bf16, y
+    (N, Ho, Wo, Cout) preallocated; eff / skip / stats / a as in
+    :func:`conv_in` (N == 1 for skip and a)."""
+    wt = w.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()   # (3, 3, Cout, Cin)
+    for t in (x, skip, y, a):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{kernel.name}: the tensor-core route needs 16-byte "
+                             f"aligned tensors")
+    n, hin, win, cin = x.shape
+    kernel.call(TC_ENTRY, x.device, ptr(x), ptr(wt), ptr(bt), ptr(eff), ptr(skip),
+                ptr(y), ptr(stats), ptr(a), n, hin, win, cin, w.shape[0], pad,
+                int(relu), int(out_relu), _TC_FORM)
 
 
 def _prologue(x, eff, relu: bool, skip):
@@ -47,8 +85,9 @@ def conv_in_plain(x, w, b, *, stride: int, pad: int, eff=None, relu: bool = Fals
 
 def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
             relu: bool = False, skip=None, emit_input: bool = False):
-    """Launch `kernel` (K2 or K3) on a CUDA tensor; plain version on CPU.
-    Returns (y, stats) or (y, stats, a) with emit_input."""
+    """Launch `kernel` (K2 or K3) on a CUDA tensor, on the route that
+    :func:`tensor_core_route` names; plain version on CPU. Returns (y,
+    stats) or (y, stats, a) with emit_input."""
     if x.device.type == "cpu":
         return conv_in_plain(x, w, b, stride=stride, pad=pad, eff=eff, relu=relu,
                              skip=skip, emit_input=emit_input)
@@ -78,12 +117,16 @@ def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
     wout = (win + 2 * pad - kw) // stride + 1
     if hout < 1 or wout < 1:
         raise ValueError(f"{kernel.name}: empty output for input {(hin, win)}")
-    wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()          # HWIO
     bt = b.to(dtype).float().contiguous()
     effc = eff.float().contiguous() if eff is not None else None
     y = torch.empty((hout, wout, cout), dtype=dtype, device=x.device)
     stats = torch.zeros((2, cout), dtype=torch.float32, device=x.device)
     a = torch.empty_like(x) if emit_input else None
+    if tensor_core_route(dtype, kh, kw, stride, pad, cin, cout):
+        launch_tc(kernel, x[None], w, bt, y[None], pad=pad, eff=effc, relu=relu,
+                  skip=skip, stats=stats, a=a)
+        return (y, stats, a) if emit_input else (y, stats)
+    wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()          # HWIO
     kernel.call("fav_conv_in", x.device, ptr(x), ptr(wt), ptr(bt), ptr(effc),
                 ptr(skip), ptr(y), ptr(stats), ptr(a), hin, win, cin, hout, wout,
                 cout, kh, kw, stride, pad, int(relu), int(dtype == torch.bfloat16))

@@ -1,5 +1,6 @@
-"""K4: the 3x3 stride-1 block conv — wrapper of ``csrc/conv_in.cu``'s
-``fav_conv3x3`` configuration and its plain PyTorch version.
+"""K4: the 3x3 stride-1 block conv — wrapper of ``csrc/conv_tc.cu``
+(bfloat16) and ``csrc/conv_in.cu``'s ``fav_conv3x3`` configuration
+(float32), and its plain PyTorch version.
 
 Replaces ``fast_artistic_videos_tpu/ops/conv_pallas.py`` ``_conv3x3_kernel``
 (``conv3x3_pallas`` / ``conv3x3_pallas_valid``): the residual- and
@@ -13,7 +14,10 @@ replicate padding.
 x is (N, H, W, C) NHWC in float32 or bfloat16, weights OIHW (the port's
 parameter layout) cast to x's dtype, as the Pallas kernel casts them. The
 whole batch is one launch, as the JAX package's ``vmap`` over one
-``pallas_call`` is one kernel.
+``pallas_call`` is one kernel. The route is ``_conv_in.tensor_core_route``
+of the dtype and widths: bfloat16 with Cin % 64 == 0 and Cout % 128 == 0
+(every K4 shape of the stylizer) runs on the tensor cores (``conv_tc.cu``),
+float32 on the CUDA-core template (``conv_in.cu``); a failed launch raises.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import Kernel, ptr
+from ._conv_in import launch_tc, tensor_core_route
 
 KERNEL = Kernel("conv3x3", "fast_artistic_videos_tpu_torch/csrc/conv_in.cu",
                 "fast_artistic_videos_tpu/ops/conv_pallas.py:40")
@@ -58,10 +63,14 @@ def _launch(x, w, b, relu: bool, pad: int):
     hout, wout = hin + 2 * pad - 2, win + 2 * pad - 2
     if hout < 1 or wout < 1:
         raise ValueError(f"conv3x3: empty output for input {(hin, win)}")
-    wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()           # HWIO
     bt = b.to(dtype).float().contiguous()                       # rounded like x
     y = torch.empty((n, hout, wout, cout), dtype=dtype, device=x.device)
-    if y.numel():
+    if not y.numel():
+        return y
+    if tensor_core_route(dtype, 3, 3, 1, pad, cin, cout):
+        launch_tc(KERNEL, x, w, bt, y, pad=pad, out_relu=relu)
+    else:
+        wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()       # HWIO
         KERNEL.call("fav_conv3x3", x.device, ptr(x), ptr(wt), ptr(bt), ptr(y),
                     n, hin, win, cin, cout, pad, int(relu),
                     int(dtype == torch.bfloat16))

@@ -112,6 +112,113 @@ def test_block_conv_kernel_matches_plain(cuda, dtype, tol, n, cout, same, relu):
         assert g.min().item() >= 0.0
 
 
+def _stats_err(got, want, count):
+    """The statistics as the instance norm reads them: the mean's error in
+    units of the channel's std, and the variance's relative error."""
+    m, mp = got[0] / count, want[0] / count
+    v, vp = got[1] / count - m * m, want[1] / count - mp * mp
+    return max(((m - mp).abs() / vp.clamp(min=1e-12).sqrt()).max().item(),
+               ((v - vp).abs() / vp.clamp(min=1e-12)).max().item())
+
+
+@pytest.mark.parametrize("h,w", [(37, 29), (67, 131)])
+@pytest.mark.parametrize("eff,relu,skip,emit", [
+    (False, False, False, False), (True, True, False, True), (True, False, True, True),
+    (False, False, False, True)])
+def test_tensor_core_chain_conv_matches_plain(cuda, h, w, eff, relu, skip, emit):
+    """K2 in bfloat16 at 128 -> 128 takes the tensor-core route (one launch,
+    counted on `fav_conv_tc`) at sizes that are no multiple of its 16 x 16
+    tile: y within relative L2 1e-2 and the statistics within 1e-2 of the
+    plain version, and the emitted prologue result `a` bit-identical to the
+    plain prologue everywhere, tile borders included (the kernel rounds
+    after the multiply, the add and the skip add as PyTorch does)."""
+    rng = np.random.default_rng(9)
+    c = 128
+    x = _t(rng.standard_normal((h, w, c)), cuda, torch.bfloat16)
+    wt = _t(rng.standard_normal((c, c, 3, 3)) / np.sqrt(9 * c), cuda)
+    b = _t(rng.standard_normal(c) * 0.1, cuda)
+    kw = dict(eff=_t(np.stack([rng.random(c) + 0.5, rng.standard_normal(c) * 0.1]), cuda)
+              if eff else None, pre_relu=relu,
+              skip=_t(rng.standard_normal((h + 4, w + 4, c)), cuda, torch.bfloat16)
+              if skip else None, emit_input=emit)
+    k = rblock_kernel.KERNEL
+    before = (k.launches, k.routes.get("fav_conv_tc", 0))
+    got = rblock_kernel.chain_conv(x, wt, b, **kw)
+    assert (k.launches, k.routes.get("fav_conv_tc", 0)) == (before[0] + 1, before[1] + 1)
+    want = rblock_kernel.chain_conv_plain(x, wt, b, **kw)
+    y, yp = got[0].float(), want[0].float()
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == (h - 2, w - 2, c)
+    assert ((y - yp).norm() / yp.norm()).item() <= 1e-2
+    assert _stats_err(got[1], want[1], (h - 2) * (w - 2)) <= 1e-2
+    if emit:
+        assert got[2].dtype == torch.bfloat16 and torch.equal(got[2], want[2])
+        # the rows and columns where 16-pixel tiles meet, explicitly
+        for r in (15, 16, 17, h - 1):
+            assert torch.equal(got[2][r], want[2][r])
+        for q in (15, 16, 17, w - 1):
+            assert torch.equal(got[2][:, q], want[2][:, q])
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("cout", [128, 256])
+@pytest.mark.parametrize("relu", [False, True])
+def test_tensor_core_block_conv_matches_plain(cuda, n, same, cout, relu):
+    """K4 in bfloat16 on the tensor-core route, one launch for the batch, at
+    a ragged size (19 x 37), against its plain version (relative L2 1e-2)."""
+    rng = np.random.default_rng(10)
+    h, w, c = 19, 37, 128
+    x = _t(rng.standard_normal((n, h, w, c)), cuda, torch.bfloat16)
+    wt = _t(rng.standard_normal((cout, c, 3, 3)) / np.sqrt(9 * c), cuda)
+    b = _t(rng.standard_normal(cout) * 0.1, cuda)
+    fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
+    k = conv_kernel.KERNEL
+    before = (k.launches, k.routes.get("fav_conv_tc", 0))
+    got = fn(x, wt, b, relu)
+    assert (k.launches, k.routes.get("fav_conv_tc", 0)) == (before[0] + 1, before[1] + 1)
+    want = conv_kernel.conv3x3_plain(x, wt, b, relu, 1 if same else 0)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    g, ref = got.float(), want.float()
+    assert ((g - ref).norm() / ref.norm()).item() <= 1e-2
+    if relu:
+        assert g.min().item() >= 0.0
+
+
+def test_route_counters_rise_once_per_launch(cuda):
+    """Three bfloat16 launches add three to `launches` and to the
+    tensor-core route; a float32 launch adds one to `launches` and none to
+    it."""
+    rng = np.random.default_rng(11)
+    x = _t(rng.standard_normal((2, 12, 20, 128)), cuda, torch.bfloat16)
+    wt = _t(rng.standard_normal((128, 128, 3, 3)) / 34, cuda)
+    b = _t(rng.standard_normal(128) * 0.1, cuda)
+    k = conv_kernel.KERNEL
+    k.reset()
+    for _ in range(3):
+        conv_kernel.conv3x3(x, wt, b)
+    assert k.launches == 3 and k.routes == {"fav_conv_tc": 3}
+    conv_kernel.conv3x3(x.float(), wt, b)
+    assert k.launches == 4 and k.routes == {"fav_conv_tc": 3, "fav_conv3x3": 1}
+    k.reset()
+    assert k.launches == 0 and k.routes == {}
+
+
+def test_stylizer_bf16_batch1_takes_the_tensor_cores(cuda):
+    """The batch-1 stylizer in bfloat16: K3 three launches on the CUDA-core
+    route, K2 ten on the tensor-core route and none elsewhere, within
+    mean-abs/255 1e-2 of the cuDNN path."""
+    spec, params, _ = checkpoint.load_model("demo", cuda)
+    x = _t(np.random.default_rng(12).standard_normal((1, 96, 128, 7)) * 60, cuda,
+           torch.bfloat16)
+    kernels = (front_kernel.KERNEL, rblock_kernel.KERNEL, conv_kernel.KERNEL)
+    for k in kernels:
+        k.reset()
+    got = stylizer.apply(params, spec, x, dtype=torch.bfloat16)
+    assert [dict(k.routes) for k in kernels] == [{"fav_conv_in": 3}, {"fav_conv_tc": 10}, {}]
+    want = stylizer.apply(params, spec, x, dtype=torch.bfloat16, fused=False)
+    assert (got.float() - want.float()).abs().mean().item() / 255.0 <= 1e-2
+
+
 def _vr_maps(face, overlap):
     return [vr.perspective_warp_map_left(face, overlap, face),
             vr.perspective_warp_map_right(face, overlap, face),
