@@ -22,31 +22,33 @@ Phases (any failure exits non-zero, before the result line is printed):
      VideoDriver.run; the launch counters must rise by the expected amount
      per frame, every K2 launch of the bfloat16 run and none of the
      float32 run must take the tensor-core route, and every output must be
-     finite;
+     finite; fps with and without PNG encoding, and the device's busy share
+     without it (torch.profiler);
   5. the port on the card against the JAX package's committed 2D CLI output
      (tests/fixtures/torch_parity_demo.npz), mean-abs <= 1e-2 per frame;
   6. the VR main path: the spherical stylizer on 6 frames of six seeded
      922x922 pan faces (overlap 128), float32 then bfloat16, through
      cli/stylize_vr_video.py's build functions and VRDriver.run, with exact
-     launch counts (and routes, as in phase 4), finite faces, fps with and without PNG encoding, stage
-     times, the device's busy share (torch.profiler), and one face step
-     through the kernels against the plain versions;
+     launch counts (and routes, as in phase 4), finite faces, fps with and
+     without PNG encoding, stage times, the device's busy share
+     (torch.profiler), and one face step through the kernels against the
+     plain versions;
   7. the port's VR CLI on the card against the JAX package's committed VR
      CLI output (tests/fixtures/torch_parity_vr.npz), mean-abs <= 1e-2 per
      face;
   8. the batched path: --create_inconsistent --inconsistent_batch 4 on 8 of
      the 1080p pan frames, float32 then bfloat16, with exact launch counts
      (K4 20, the other kernels 0; K4 on the tensor cores in bfloat16 only),
-     finite outputs, fps with and without PNG
-     encoding, and the batched frames against the same frames stylized one
-     at a time through K3 and K2 (mean-abs <= 1e-2);
+     finite outputs, fps with and without PNG encoding, and the batched
+     frames against the same frames stylized one at a time through K3 and
+     K2 (mean-abs <= 1e-2);
   9. feature reuse (--feature_reuse 3) on the 12 pan frames, float32, with
-     exact K1/K2/K3 counts (no tensor-core launch), frames 1-2 within one uint8 step of phase 4's
-     exact run and the reuse frames within mean-abs 0.05 of it (the JAX
-     package's bound on how far the reuse approximation drifts from the
-     exact run, not a correctness check: phase 10 holds the reuse mode
-     against the JAX CLI), fps with and without PNG; then --scale_factor
-     0.5 (outputs at full size, finite);
+     exact K1/K2/K3 counts (no tensor-core launch), frames 1-2 within one
+     uint8 step of phase 4's exact run and the reuse frames within
+     mean-abs 0.05 of it (the JAX package's bound on how far the reuse
+     approximation drifts from the exact run, not a correctness check:
+     phase 10 holds the reuse mode against the JAX CLI), fps with and
+     without PNG; then --scale_factor 0.5 (outputs at full size, finite);
  10. the port CLI on the card against the JAX package's committed outputs of
      its other modes (tests/fixtures/torch_parity_batch.npz: batched,
      feature reuse, scale 0.5, phase-resident), mean-abs <= 1e-2 per frame.
@@ -168,7 +170,7 @@ def _reset(kernels):
 def _check_routes(kernels, launches, dtype, where):
     """Every K2/K4 launch of a bfloat16 run took the tensor-core route and
     none of a float32 run did (the rule of ops/_conv_in.py at the stylizer's
-    128-channel widths); returns the tensor-core counts."""
+    128-channel widths)."""
     from fast_artistic_videos_tpu_torch.ops import _conv_in
 
     tc = {name: k.routes.get(_conv_in.TC_ENTRY, 0) for name, k in kernels.items()}
@@ -177,7 +179,6 @@ def _check_routes(kernels, launches, dtype, where):
     log(f"{where} {dtype}: tensor-core launches {tc}, expected {want}")
     if tc != want:
         raise AssertionError(f"{where} {dtype}: tensor-core launches {tc} != {want}")
-    return tc
 
 
 def _profile_ms(torch, fn, name, n=20):
@@ -443,12 +444,7 @@ def check_strip_warp(torch, g):
             lib_ms = _time_ms(torch, lib)
             # the kernel's own device time (the event time above includes
             # the host's launch path)
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    fn(img)
-                torch.cuda.synchronize()
-            dev_ms = _device_ms(torch, prof, "strip_warp_kernel") / 20
+            dev_ms = _profile_ms(torch, lambda: fn(img), "strip_warp_kernel")
             # the least bytes: the source box the taps touch (inside the
             # image), read once, and the output frame written once; 6
             # multiply-adds per element
@@ -559,7 +555,12 @@ def run_main_path(torch, workdir):
         counted[dtype] = launches
         fps[dtype] = len(results) / secs
         results, secs = _drive(torch, _options(pattern, prefix, dtype, n), write=False)
-        log(f"main path {dtype} without PNG encoding: {len(results) / secs:.3f} fps")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _drive(torch, _options(pattern, prefix, dtype, n), write=False)
+        busy = _device_ms(torch, prof) / 1000.0 / secs
+        log(f"main path {dtype} without PNG encoding: {len(results) / secs:.3f} fps; device "
+            f"kernel time / wall time {busy:.3f} (torch.profiler kernel time over the wall "
+            f"time of the unprofiled run)")
     return counted, fps
 
 

@@ -36,11 +36,16 @@
 // accumulation. K2 and K3 launch with N = 1 (the streaming path); K4 with
 // the whole batch in one launch (blockIdx.z = image * Cout blocks + block).
 //
-// What bounds it on the H100: CUDA-core FMAs. At f32 the R128 chain is about
-// 43 GFLOP per conv at 1080p, layer 0 about 84 GFLOP and a batched K4 conv
-// of four 1080p frames about 150 GFLOP; no tensor cores are used yet (no
-// wgmma/TMA — later work), so the roofline is the 67 TFLOP/s f32 FMA rate,
-// not memory. Design: a block owns a 16 x 16 output tile x 32 output
+// Which configurations run here: every float32 conv, and the bfloat16 convs
+// that ops/_conv_in.py's `tensor_core_route` leaves here (the front, K3, and
+// widths that are no multiple of 64 in / 128 out). Bfloat16 K2 and K4 at the
+// stylizer's 128-channel widths run on the tensor cores in conv_tc.cu.
+//
+// What bounds it on the H100: CUDA-core FMAs. At f32 the R128 chain is 42.3
+// GFLOP per conv at 1080p (290x500 -> 288x498), layer 0 84.2 GFLOP and a
+// batched K4 conv of four 1080p frames 169.2 GFLOP; no tensor cores are
+// used here, so the roofline is the 67 TFLOP/s f32 FMA rate (float32 runs
+// with TF32 off), not memory. Design: a block owns a 16 x 16 output tile x 32 output
 // channels of one image; the input halo (with the prologue applied once per
 // element) and the weight slice for a chunk of input channels are staged in
 // shared memory as f32; each of the 256 threads keeps 4 pixels x 8 channels

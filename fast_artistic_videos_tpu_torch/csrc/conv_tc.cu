@@ -24,7 +24,8 @@
 // What bounds it on the H100: operations. A K2 conv at 290x500 (output
 // 288x498) is 42.3 GFLOP, 0.043 ms at the 989 TFLOP/s bf16 tensor-core
 // rate; the batched K4 conv of four such frames is 169.2 GFLOP, 0.171 ms;
-// the bytes (inputs read once, outputs written once) take a third of that.
+// the bytes (each input read once, each output written once) take half of
+// that at 3.35 TB/s (three quarters when K2 also writes `a`).
 // Design, for that bound:
 //   * implicit GEMM: M = a 16 x 16 tile of output pixels, N = 128 output
 //     channels, K = 9 taps x Cin walked in k16 steps; no im2col buffer;
@@ -38,12 +39,15 @@
 //     writes `a` for the pixels the tile owns;
 //   * the weights stream through a ring of kStages (tap, chunk) slices of
 //     [128 Cout][64 Cin] bf16 (16 KB, K-major, 128-byte swizzle), loaded by
-//     cp.async kStages - 1 steps ahead of their use;
+//     cp.async kAhead steps ahead of their use;
 //   * the product: wgmma.mma_async m64n128k16 (A, the shifted halo rows,
 //     from registers by ldmatrix; B, the weight slice, from shared memory
-//     through a descriptor), two warpgroups of 128 output pixels each. The
-//     register fragments of A and of the accumulator are laid out as
-//     mma.sync.m16n8k16's, which the first form of this kernel used;
+//     through a descriptor), two warpgroups of 128 output pixels each. One
+//     step's wgmmas stay in flight while the next step's A is loaded: two
+//     register sets for A, and a ring slot is refilled only two steps after
+//     its use. (The register fragments of A and of the accumulator are laid
+//     out as mma.sync.m16n8k16's; an mma.sync form of this kernel and a
+//     wgmma form drained every step were slower on the H100, PERF.md.);
 //   * the epilogue stages bias + ReLU + bf16 rounding through shared memory
 //     and writes 16-byte vectors masked at the ragged edge; each thread sums
 //     its 8 channels' stored values and squares, a shuffle and shared-memory
@@ -64,21 +68,16 @@ constexpr int kHaloPx = kHalo * kHalo;      // 324
 constexpr int kN = 128;                     // output channels per block
 constexpr int kKC = 64;                     // input channels per chunk (128 B)
 constexpr int kAhead = 3;                   // weight slices loaded ahead of use
+// + the slice in use + the previous step's, still read by its wgmma
+constexpr int kStages = kAhead + 2;
 constexpr int kThreads = 256;               // two warpgroups
 constexpr int kWBytes = kN * kKC * 2;       // one weight slice: 16 KB
 constexpr int kHaloBytes = kHaloPx * kKC * 2;   // one halo chunk: 41,472 B
+constexpr int kSmem = kStages * kWBytes + 2 * kHaloBytes + 1024;  // + alignment
 constexpr int kMaxDevices = 64;
 
-// forms of the product: 0 mma.sync; 1 wgmma, drained every step; 2 wgmma
-// with one step in flight (its ring slot is not refilled until it is done)
-template <int kForm> struct Form {
-  static constexpr bool kWgmma = kForm >= 1;
-  static constexpr bool kPipe = kForm == 2;
-  static constexpr int kStages = kAhead + (kPipe ? 2 : 1);
-  static constexpr int kSmem = kStages * kWBytes + 2 * kHaloBytes + 1024;  // + alignment
-  static_assert(kStages * kWBytes >= kTile * kTile * kN * 2,
-                "the epilogue stages the output tile in the weight ring");
-};
+static_assert(kStages * kWBytes >= kTile * kTile * kN * 2,
+              "the epilogue stages the output tile in the weight ring");
 
 struct TcArgs {
   const __nv_bfloat16* x;     // (n, hin, win, cin)
@@ -113,15 +112,6 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Shared-memory descriptor of a K-major [128 rows][64 bf16] slice with the
@@ -187,10 +177,7 @@ __device__ __forceinline__ uint32_t swz(int r, int g) {
   return (uint32_t)(r * 128 + ((g ^ (r & 7)) << 4));
 }
 
-template <int kForm>
 __global__ void __launch_bounds__(kThreads, 1) conv_tc_kernel(TcArgs p) {
-  constexpr bool kWgmma = Form<kForm>::kWgmma, kPipe = Form<kForm>::kPipe;
-  constexpr int kStages = Form<kForm>::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ float s_stat[2][kN];
   __shared__ float s_bias[kN];
@@ -307,14 +294,15 @@ __global__ void __launch_bounds__(kThreads, 1) conv_tc_kernel(TcArgs p) {
     cp_async_commit();
   }
 
-  // one step: A of this step into `acur`; with kPipe, `aprev` holds the
-  // previous step's A, still read by its wgmma until the wait below
+  // One step: A of step s into `acur`; `aprev` holds step s - 1's A, read
+  // by its wgmmas until the wait at the end of this step.
   auto step = [&](int s, uint32_t (&acur)[4][2][4], uint32_t (&aprev)[4][2][4]) {
     cp_async_wait<kAhead - 1>();
-    if (kWgmma) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();                     // step s has landed; step s - 1 is issued
+    // the slices written through cp.async are read by wgmma (async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();     // step s has landed; every warpgroup is done with step s - 2
     const int c = s / 9, tap = s % 9;
-    if (s + kAhead < steps) load_w(s + kAhead);
+    if (s + kAhead < steps) load_w(s + kAhead);      // into step s - 2's slot
     if (tap == 0 && c + 1 < nchunk) load_halo(c + 1);
     cp_async_commit();
     if (tap == 0 && prologue) {
@@ -324,53 +312,25 @@ __global__ void __launch_bounds__(kThreads, 1) conv_tc_kernel(TcArgs p) {
     const int u = tap / 3, v = tap % 3;
     const uint32_t wbase = smem_u32(s_w + (s % kStages) * kWBytes);
     const uint32_t hbase = smem_u32(s_halo + (c & 1) * kHaloBytes);
-    // A rows: output row R = 8 wg + 4 t + wi of the tile, columns 0-15
-    int apx[2];
+    // A of m64 tile t: this warp's 16 rows of it are the 16 pixels of output
+    // row 8 wg + 4 t + wi of the tile, shifted by the tap
 #pragma unroll
-    for (int t = 0; t < 2; ++t)
-      apx[t] = (8 * wg + 4 * t + wi + u) * kHalo + (lane & 15) + v;
-    if (kWgmma) {
+    for (int t = 0; t < 2; ++t) {
+      const int px = (8 * wg + 4 * t + wi + u) * kHalo + (lane & 15) + v;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-          ldmatrix_x4(acur[kk][t], hbase + swz(apx[t], 2 * kk + (lane >> 4)));
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t desc = sw128_desc(wbase + kk * 32);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) wgmma_m64n128k16(acc[t], acur[kk][t], desc);
-      }
-      wgmma_commit();
-      if (kPipe) {
-        wgmma_wait<1>();                 // step s - 1 is done: aprev and its slot are free
-        fence_regs(&aprev[0][0][0], 32);
-      } else {
-        wgmma_wait<0>();
-        fence_regs(&acur[0][0][0], 32);
-        fence_regs(&acc[0][0], 128);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-          ldmatrix_x4(a[t], hbase + swz(apx[t], 2 * kk + (lane >> 4)));
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          uint32_t bf[4];
-          const int n = 16 * jj + ((lane >> 4) << 3) + (lane & 7);
-          ldmatrix_x4(bf, wbase + swz(n, 2 * kk + ((lane >> 3) & 1)));
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            mma_16816(&acc[t][8 * jj], a[t], bf[0], bf[1]);
-            mma_16816(&acc[t][8 * jj + 4], a[t], bf[2], bf[3]);
-          }
-        }
-      }
+        ldmatrix_x4(acur[kk][t], hbase + swz(px, 2 * kk + (lane >> 4)));
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t desc = sw128_desc(wbase + kk * 32);   // k16 step: 32 bytes on
+#pragma unroll
+      for (int t = 0; t < 2; ++t) wgmma_m64n128k16(acc[t], acur[kk][t], desc);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();     // step s - 1 is done: aprev and its ring slot are free
+    fence_regs(&aprev[0][0][0], 32);
   };
   uint32_t a0[4][2][4], a1[4][2][4];
 #pragma unroll
@@ -379,12 +339,10 @@ __global__ void __launch_bounds__(kThreads, 1) conv_tc_kernel(TcArgs p) {
     step(s, a0, a1);
     if (s + 1 < steps) step(s + 1, a1, a0);
   }
-  if (kPipe) {
-    wgmma_wait<0>();
-    fence_regs(&a0[0][0][0], 32);
-    fence_regs(&a1[0][0][0], 32);
-    fence_regs(&acc[0][0], 128);
-  }
+  wgmma_wait<0>();
+  fence_regs(&a0[0][0][0], 32);
+  fence_regs(&a1[0][0][0], 32);
+  fence_regs(&acc[0][0], 128);
 
   // epilogue: bias, ReLU, bf16 into the (free) weight ring as [256 px][128]
   // with the 16-byte group XORed by the pixel, then 16-byte stores
@@ -454,7 +412,6 @@ __global__ void __launch_bounds__(kThreads, 1) conv_tc_kernel(TcArgs p) {
 }
 
 // Lift the kernel's dynamic shared-memory limit to kSmem, once per device.
-template <int kForm>
 cudaError_t allow_smem() {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
@@ -462,21 +419,10 @@ cudaError_t allow_smem() {
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (done[dev].load()) return cudaSuccess;
-  e = cudaFuncSetAttribute(conv_tc_kernel<kForm>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, Form<kForm>::kSmem);
+  e = cudaFuncSetAttribute(conv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmem);
   if (e == cudaSuccess) done[dev].store(true);
   return e;
-}
-
-template <int kForm>
-int launch(const TcArgs& p, cudaStream_t s) {
-  cudaError_t e = allow_smem<kForm>();
-  if (e != cudaSuccess) return (int)e;
-  const long long zblocks = (long long)p.n * (p.cout / kN);
-  if (zblocks > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((p.wout + kTile - 1) / kTile, (p.hout + kTile - 1) / kTile, (unsigned)zblocks);
-  conv_tc_kernel<kForm><<<grid, kThreads, Form<kForm>::kSmem, s>>>(p);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -485,11 +431,11 @@ int launch(const TcArgs& p, cudaStream_t s) {
 // wout, cout), hout = hin + 2 pad - 2, on the current device and `stream`.
 // K2: n = 1, pad 0, any of eff / relu / skip / a / stats. K4: eff, skip, a
 // and stats null, out_relu the epilogue ReLU. Pointers 16-byte aligned;
-// cin % 64 == 0, cout % 128 == 0. `form`: see Form.
+// cin % 64 == 0, cout % 128 == 0.
 extern "C" int fav_conv_tc(const void* x, const void* w, const void* b, const void* eff,
                            const void* skip, void* y, void* stats, void* a, int n,
                            int hin, int win, int cin, int cout, int pad, int relu,
-                           int out_relu, int form, void* stream) {
+                           int out_relu, void* stream) {
   if (n < 1 || cin < kKC || cin % kKC || cout < kN || cout % kN || pad < 0 || pad > 1)
     return (int)cudaErrorInvalidValue;
   if ((skip || a) && n != 1) return (int)cudaErrorInvalidValue;
@@ -501,7 +447,11 @@ extern "C" int fav_conv_tc(const void* x, const void* w, const void* b, const vo
   p.hout = hin + 2 * pad - 2; p.wout = win + 2 * pad - 2;
   p.relu = relu; p.out_relu = out_relu;
   if (p.hout < 1 || p.wout < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (form == 2) return launch<2>(p, s);
-  return form ? launch<1>(p, s) : launch<0>(p, s);
+  cudaError_t e = allow_smem();
+  if (e != cudaSuccess) return (int)e;
+  const long long zblocks = (long long)n * (cout / kN);
+  if (zblocks > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((p.wout + kTile - 1) / kTile, (p.hout + kTile - 1) / kTile, (unsigned)zblocks);
+  conv_tc_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }

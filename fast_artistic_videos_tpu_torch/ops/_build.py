@@ -39,7 +39,7 @@ SIGNATURES = {
     "fav_conv_in": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "fav_conv3x3": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "fav_strip_warp": [_P] * 6 + [_I] * 12 + [_P],
-    "fav_conv_tc": [_P] * 8 + [_I] * 9 + [_P],
+    "fav_conv_tc": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 

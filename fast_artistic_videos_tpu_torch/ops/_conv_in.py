@@ -28,8 +28,6 @@ import torch.nn.functional as F
 from ._build import Kernel, ptr
 
 TC_ENTRY = "fav_conv_tc"
-# development switch of conv_tc.cu's product (its Form): 0 mma.sync, 1-2 wgmma
-_TC_FORM = 2
 
 
 def tensor_core_route(dtype, kh: int, kw: int, stride: int, pad: int, cin: int,
@@ -54,7 +52,7 @@ def launch_tc(kernel: Kernel, x, w, bt, y, *, pad: int, eff=None, relu: bool = F
     n, hin, win, cin = x.shape
     kernel.call(TC_ENTRY, x.device, ptr(x), ptr(wt), ptr(bt), ptr(eff), ptr(skip),
                 ptr(y), ptr(stats), ptr(a), n, hin, win, cin, w.shape[0], pad,
-                int(relu), int(out_relu), _TC_FORM)
+                int(relu), int(out_relu))
 
 
 def _prologue(x, eff, relu: bool, skip):

@@ -11,7 +11,11 @@ The TPU kernel runs the whole chain on one constant, aligned physical shape
 and masks its statistics to the valid extent; that is a TPU alignment
 workaround. Here every conv runs on its logical (shrinking) shape:
 x (H, W, C) -> y (H - 2, W - 2, Cout), and the statistics cover all of y.
-CUDA kernel: ``csrc/conv_in.cu`` with (kh, kw, stride, pad) = (3, 3, 1, 0).
+CUDA kernels, by ``_conv_in.tensor_core_route`` of the dtype and widths:
+bfloat16 with C % 64 == 0 and Cout % 128 == 0 (every conv of the R128
+chain) runs on the tensor cores (``csrc/conv_tc.cu``); float32 and other
+widths on the CUDA-core template (``csrc/conv_in.cu``), both with (kh, kw,
+stride, pad) = (3, 3, 1, 0). ``KERNEL.routes`` counts the launches of each.
 """
 
 from __future__ import annotations

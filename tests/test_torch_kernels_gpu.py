@@ -184,6 +184,36 @@ def test_tensor_core_block_conv_matches_plain(cuda, n, same, cout, relu):
         assert g.min().item() >= 0.0
 
 
+@pytest.mark.parametrize("cin", [64, 192, 256])
+def test_tensor_core_input_widths(cuda, cin):
+    """The tensor-core route at other input widths than the stylizer's 128:
+    one 64-channel chunk (an odd number of k steps), and three or four
+    chunks, where the two halo buffers are reused. K2 with the full
+    prologue (y, statistics, bit-identical `a`) and K4 SAME, against their
+    plain versions."""
+    rng = np.random.default_rng(13)
+    h, w, cout = 23, 41, 128
+    x = _t(rng.standard_normal((h, w, cin)), cuda, torch.bfloat16)
+    wt = _t(rng.standard_normal((cout, cin, 3, 3)) / np.sqrt(9 * cin), cuda)
+    b = _t(rng.standard_normal(cout) * 0.1, cuda)
+    kw = dict(eff=_t(np.stack([rng.random(cin) + 0.5, rng.standard_normal(cin) * 0.1]), cuda),
+              skip=_t(rng.standard_normal((h + 4, w + 4, cin)), cuda, torch.bfloat16),
+              emit_input=True)
+    before = rblock_kernel.KERNEL.routes.get("fav_conv_tc", 0)
+    got = rblock_kernel.chain_conv(x, wt, b, **kw)
+    assert rblock_kernel.KERNEL.routes.get("fav_conv_tc", 0) == before + 1
+    want = rblock_kernel.chain_conv_plain(x, wt, b, **kw)
+    y, yp = got[0].float(), want[0].float()
+    assert ((y - yp).norm() / yp.norm()).item() <= 1e-2
+    assert _stats_err(got[1], want[1], (h - 2) * (w - 2)) <= 1e-2
+    assert torch.equal(got[2], want[2])
+    before = conv_kernel.KERNEL.routes.get("fav_conv_tc", 0)
+    g4 = conv_kernel.conv3x3(x[None], wt, b, relu=True)
+    assert conv_kernel.KERNEL.routes.get("fav_conv_tc", 0) == before + 1
+    r4 = conv_kernel.conv3x3_plain(x[None], wt, b, True, 1)
+    assert ((g4.float() - r4.float()).norm() / r4.float().norm()).item() <= 1e-2
+
+
 def test_route_counters_rise_once_per_launch(cuda):
     """Three bfloat16 launches add three to `launches` and to the
     tensor-core route; a float32 launch adds one to `launches` and none to
