@@ -179,6 +179,7 @@ def _check_routes(kernels, launches, dtype, where):
     log(f"{where} {dtype}: tensor-core launches {tc}, expected {want}")
     if tc != want:
         raise AssertionError(f"{where} {dtype}: tensor-core launches {tc} != {want}")
+    return tc
 
 
 def _profile_ms(torch, fn, name, n=20):
@@ -530,7 +531,7 @@ def run_main_path(torch, workdir):
     # check's sample
     expect = {"front_conv": 3 * n, "res_chain_conv": 10 * n, "warp_banded": pairs * (1 + 6 + 1),
               "conv3x3": 0, "strip_warp": 0}
-    counted = {}
+    counted, routes = {}, {}
     fps = {}
     for dtype in ("float32", "bfloat16"):
         prefix = os.path.join(workdir, dtype, "o")
@@ -545,7 +546,7 @@ def run_main_path(torch, workdir):
         if len(results) != n or launches != expect:
             raise AssertionError(f"main path {dtype}: {len(results)} frames, "
                                  f"launches {launches} != {expect}")
-        _check_routes(kernels, launches, dtype, "main path")
+        routes[dtype] = _check_routes(kernels, launches, dtype, "main path")
         for o in outs:
             if tuple(o.shape) != SIZE_1080 + (3,) or not bool(torch.isfinite(o).all()):
                 raise AssertionError(f"main path {dtype}: bad output {tuple(o.shape)}")
@@ -561,7 +562,7 @@ def run_main_path(torch, workdir):
         log(f"main path {dtype} without PNG encoding: {len(results) / secs:.3f} fps; device "
             f"kernel time / wall time {busy:.3f} (torch.profiler kernel time over the wall "
             f"time of the unprofiled run)")
-    return counted, fps
+    return counted, routes, fps
 
 
 def stage_times(torch, workdir):
@@ -679,7 +680,8 @@ def _device_ms(torch, prof, name=""):
 
 
 def run_vr_path(torch, workdir):
-    """Phase 6. Returns ({dtype: launches}, {dtype: fps})."""
+    """Phase 6. Returns ({dtype: launches}, {dtype: tensor-core launches},
+    {dtype: fps})."""
     from fast_artistic_videos_tpu_torch.core import io
 
     kernels = _kernels()
@@ -697,7 +699,7 @@ def run_vr_path(torch, workdir):
     # levels x 2 directions, the 6 faces batched) and 6 consistency samples
     expect = {"strip_warp": 36 * n + 4, "front_conv": 18 * n, "res_chain_conv": 60 * n,
               "warp_banded": 18 * (n - 1), "conv3x3": 0}
-    counted, fps = {}, {}
+    counted, routes, fps = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         prefix = os.path.join(d, dtype, "o")
         _vr_drive(torch, _vr_options(pattern, prefix, dtype, 2))       # warm-up
@@ -711,7 +713,7 @@ def run_vr_path(torch, workdir):
         if faces_done != 6 * n or launches != expect:
             raise AssertionError(f"VR path {dtype}: {faces_done} faces, "
                                  f"launches {launches} != {expect}")
-        _check_routes(kernels, launches, dtype, "VR path")
+        routes[dtype] = _check_routes(kernels, launches, dtype, "VR path")
         if len(outs) != 6 * n:
             raise AssertionError(f"VR path {dtype}: {len(outs)} stylized faces")
         for o in outs:
@@ -731,7 +733,7 @@ def run_vr_path(torch, workdir):
             f"time / wall time {busy:.3f} (torch.profiler kernel time over the wall time "
             f"of the unprofiled run)")
     vr_stage_times(torch, faces)
-    return counted, fps
+    return counted, routes, fps
 
 
 def vr_stage_times(torch, faces):
@@ -848,7 +850,7 @@ BATCH_FRAMES, BATCH_N = 8, 4
 
 def run_batched_path(torch, workdir):
     """Phase 8 on the phase-4 frames. Returns ({dtype: launches}, {dtype:
-    fps}, {dtype: fps without PNG})."""
+    tensor-core launches}, {dtype: fps}, {dtype: fps without PNG})."""
     from fast_artistic_videos_tpu_torch.cli import stylize_video as cli
     from fast_artistic_videos_tpu_torch.core import config, io
 
@@ -858,7 +860,7 @@ def run_batched_path(torch, workdir):
     # one K4 launch per block conv (5 blocks x 2) per batch step
     expect = {name: 0 for name in kernels}
     expect["conv3x3"] = 10 * (n // BATCH_N)
-    counted, fps, fps_no_png = {}, {}, {}
+    counted, routes, fps, fps_no_png = {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         def opts(frames):
             return config.StylizeOptions(
@@ -876,7 +878,7 @@ def run_batched_path(torch, workdir):
         if len(results) != n or len(outs) != n or launches != expect:
             raise AssertionError(f"batched path {dtype}: {len(results)} frames, "
                                  f"launches {launches} != {expect}")
-        _check_routes(kernels, launches, dtype, "batched path")
+        routes[dtype] = _check_routes(kernels, launches, dtype, "batched path")
         for o in outs:
             if tuple(o.shape) != SIZE_1080 + (3,) or not bool(torch.isfinite(o).all()):
                 raise AssertionError(f"batched path {dtype}: bad output {tuple(o.shape)}")
@@ -894,7 +896,7 @@ def run_batched_path(torch, workdir):
             f"vs one at a time (K3 + K2) mean-abs per frame max {err:.3g} (tol 1e-2)")
         if not err <= 1e-2:
             raise AssertionError(f"batched path {dtype}: batched vs unbatched {err}")
-    return counted, fps, fps_no_png
+    return counted, routes, fps, fps_no_png
 
 
 def _reuse_schedule(n, k):
@@ -1041,13 +1043,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         # 4. 2D main path; 5. its fixture parity; 6. VR main path; 7. its
         # fixture parity
-        counted, fps = run_main_path(torch, work)
+        counted, routes, fps = run_main_path(torch, work)
         stage_times(torch, work)
         check_fixture(torch, work)
-        vr_counted, vr_fps = run_vr_path(torch, work)
+        vr_counted, vr_routes, vr_fps = run_vr_path(torch, work)
         check_vr_fixture(torch, work)
         # 8. batched path; 9. feature reuse and scale; 10. their fixture
-        b_counted, b_fps, b_fps_no_png = run_batched_path(torch, work)
+        b_counted, b_routes, b_fps, b_fps_no_png = run_batched_path(torch, work)
         r_fps = run_reuse_and_scale(torch, work)
         check_batch_fixture(torch, work)
     torch.cuda.synchronize()
@@ -1058,9 +1060,11 @@ def main() -> int:
     from fast_artistic_videos_tpu_torch.ops import _conv_in
 
     kernels = _kernels()
-    for name, launches in (("warp_banded", counted), ("res_chain_conv", counted),
-                           ("front_conv", counted), ("conv3x3", b_counted),
-                           ("strip_warp", vr_counted)):
+    for name, launches, tc in (("warp_banded", counted, routes),
+                               ("res_chain_conv", counted, routes),
+                               ("front_conv", counted, routes),
+                               ("conv3x3", b_counted, b_routes),
+                               ("strip_warp", vr_counted, vr_routes)):
         k = kernels[name]
         cases = res[k.name]
         # the first case of each dtype is the main path's shape
@@ -1078,7 +1082,7 @@ def main() -> int:
                          "route": "cuda",
                          "source": TC_SOURCE if bf["entry"] == _conv_in.TC_ENTRY else k.source,
                          "entry": bf["entry"], "launches": n_bf,
-                         "tensor_core_launches": n_bf if name in TC_KERNELS else 0,
+                         "tensor_core_launches": tc["bfloat16"][k.name],
                          "max_abs_err": max(c["err"] for c in cases
                                             if c["dtype"] == torch.bfloat16),
                          "ms": bf["ms"], "device_ms": bf["device_ms"],

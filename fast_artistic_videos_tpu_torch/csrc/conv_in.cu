@@ -11,8 +11,9 @@
 //     here they run directly on the logical NHWC grid;
 //   * fast_artistic_videos_tpu/ops/conv_pallas.py `_conv3x3_kernel`
 //     (pallas_call in `_conv3x3_padded`) — the block convs outside the fused
-//     chain (K4, entry `fav_conv3x3`): (3, 3, 1, pad 0 or 1), no prologue,
-//     no statistics, an optional ReLU epilogue, the batch in the grid. The
+//     chain (K4, entry `fav_conv3x3`, float32 only): (3, 3, 1, pad 0 or 1),
+//     no prologue, no statistics, an optional ReLU epilogue, the batch in
+//     the grid. The
 //     TPU version's 16-row DMA windows, row padding to a tile multiple and
 //     8-aligned widths are TPU layout and are not carried: the zero pad of
 //     the SAME form is read through the halo loads (no host pad copy).
@@ -36,10 +37,11 @@
 // accumulation. K2 and K3 launch with N = 1 (the streaming path); K4 with
 // the whole batch in one launch (blockIdx.z = image * Cout blocks + block).
 //
-// Which configurations run here: every float32 conv, and the bfloat16 convs
-// that ops/_conv_in.py's `tensor_core_route` leaves here (the front, K3, and
-// widths that are no multiple of 64 in / 128 out). Bfloat16 K2 and K4 at the
-// stylizer's 128-channel widths run on the tensor cores in conv_tc.cu.
+// Which configurations run here: every float32 conv, and the bfloat16 K2/K3
+// convs that ops/_conv_in.py's `tensor_core_route` leaves here (the front,
+// K3, and chain widths that are no multiple of 64 in / 128 out). Bfloat16
+// K2 at the stylizer's 128-channel widths and every bfloat16 K4 conv run on
+// the tensor cores in conv_tc.cu.
 //
 // What bounds it on the H100: CUDA-core FMAs. At f32 the R128 chain is 42.3
 // GFLOP per conv at 1080p (290x500 -> 288x498), layer 0 84.2 GFLOP and a
@@ -325,12 +327,13 @@ extern "C" int fav_conv_in(const void* x, const void* w, const void* b,
   return is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
 }
 
-// K4: 3x3 stride-1 conv of n images (n, hin, win, cin) -> (n, hout, wout,
-// cout) with hout = hin + 2 pad - 2, zero padding `pad` (0 or 1), bias and
-// an optional ReLU epilogue; one launch for the whole batch.
+// K4 in float32: 3x3 stride-1 conv of n images (n, hin, win, cin) -> (n,
+// hout, wout, cout) with hout = hin + 2 pad - 2, zero padding `pad` (0 or
+// 1), bias and an optional ReLU epilogue; one launch for the whole batch.
+// Bfloat16 K4 runs in conv_tc.cu.
 extern "C" int fav_conv3x3(const void* x, const void* w, const void* b, void* y,
                            int n, int hin, int win, int cin, int cout, int pad,
-                           int relu, int is_bf16, void* stream) {
+                           int relu, void* stream) {
   if (n < 1 || cout < 1 || cin < 1 || pad < 0 || pad > 1)
     return (int)cudaErrorInvalidValue;
   ConvArgs p;
@@ -342,6 +345,5 @@ extern "C" int fav_conv3x3(const void* x, const void* w, const void* b, void* y,
   if (p.hout < 1 || p.wout < 1) return (int)cudaErrorInvalidValue;
   p.kh = 3; p.kw = 3; p.stride = 1; p.pad = pad; p.relu = 0;
   p.out_relu = relu;
-  cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
+  return launch<float>(p, (cudaStream_t)stream);
 }

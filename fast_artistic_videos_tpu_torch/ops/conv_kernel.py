@@ -17,7 +17,8 @@ whole batch is one launch, as the JAX package's ``vmap`` over one
 ``pallas_call`` is one kernel. The route is ``_conv_in.tensor_core_route``
 of the dtype and widths: bfloat16 with Cin % 64 == 0 and Cout % 128 == 0
 (every K4 shape of the stylizer) runs on the tensor cores (``conv_tc.cu``),
-float32 on the CUDA-core template (``conv_in.cu``); a failed launch raises.
+float32 on the CUDA-core template (``conv_in.cu``, float32 only); bfloat16
+at other widths, outside K4's contract, raises, as does a failed launch.
 """
 
 from __future__ import annotations
@@ -69,11 +70,14 @@ def _launch(x, w, b, relu: bool, pad: int):
         return y
     if tensor_core_route(dtype, 3, 3, 1, pad, cin, cout):
         launch_tc(KERNEL, x, w, bt, y, pad=pad, out_relu=relu)
+    elif dtype == torch.bfloat16:
+        raise ValueError(f"conv3x3: bfloat16 runs only on the tensor-core route "
+                         f"(Cin % 64 == 0, Cout % 128 == 0; conv_pallas takes multiples "
+                         f"of 128); got {cin} -> {cout}")
     else:
-        wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()       # HWIO
+        wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()       # HWIO, float32
         KERNEL.call("fav_conv3x3", x.device, ptr(x), ptr(wt), ptr(bt), ptr(y),
-                    n, hin, win, cin, cout, pad, int(relu),
-                    int(dtype == torch.bfloat16))
+                    n, hin, win, cin, cout, pad, int(relu))
     return y
 
 

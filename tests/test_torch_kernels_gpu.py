@@ -53,13 +53,33 @@ def test_warp_kernel_matches_plain(cuda, shape, band, dtype, tol):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+def _stats_err(got, want, count):
+    """The statistics as the instance norm reads them: the mean's error in
+    units of the channel's std, and the variance's relative error."""
+    m, mp = got[0] / count, want[0] / count
+    v, vp = got[1] / count - m * m, want[1] / count - mp * mp
+    return max(((m - mp).abs() / vp.clamp(min=1e-12).sqrt()).max().item(),
+               ((v - vp).abs() / vp.clamp(min=1e-12)).max().item())
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("eff,relu,skip,emit,cout", [
+@pytest.mark.parametrize("eff,relu,skip,emit,narrow_cout", [
     (False, False, False, False, 32), (True, True, False, True, 48),
-    (True, False, True, True, 64)])
-def test_chain_conv_kernel_matches_plain(cuda, dtype, tol, eff, relu, skip, emit, cout):
+    (True, False, True, True, 64), (False, False, False, True, 40)])
+@pytest.mark.parametrize("c,h,w", [(40, 37, 29), (128, 37, 29), (128, 67, 131)])
+def test_chain_conv_kernel_matches_plain(cuda, dtype, tol, eff, relu, skip, emit,
+                                         narrow_cout, c, h, w):
+    """K2, one launch, against its plain version (relative L2 of y, the
+    statistics and `a`: 1e-4 float32, 1e-2 bfloat16). At 40 input channels
+    (Cout `narrow_cout`) and in float32 it takes the CUDA-core route. At
+    128 -> 128 in bfloat16 it takes the tensor-core route, at sizes that are
+    no multiple of its 16 x 16 tile: there the statistics are also held
+    within 1e-2 as the instance norm reads them, and the emitted prologue
+    result `a` is bit-identical to the plain prologue everywhere, tile
+    borders included (the kernel rounds after the multiply, the add and the
+    skip add as PyTorch does)."""
     rng = np.random.default_rng(2)
-    h, w, c = 37, 29, 40
+    cout = narrow_cout if c == 40 else 128
     x = _t(rng.standard_normal((h, w, c)), cuda, dtype)
     wt = _t(rng.standard_normal((cout, c, 3, 3)) / np.sqrt(9 * c), cuda)
     b = _t(rng.standard_normal(cout) * 0.1, cuda)
@@ -67,11 +87,27 @@ def test_chain_conv_kernel_matches_plain(cuda, dtype, tol, eff, relu, skip, emit
               if eff else None, pre_relu=relu,
               skip=_t(rng.standard_normal((h + 4, w + 4, c)), cuda, dtype) if skip else None,
               emit_input=emit)
+    tc = dtype == torch.bfloat16 and c == 128
+    entry = "fav_conv_tc" if tc else "fav_conv_in"
+    k = rblock_kernel.KERNEL
+    before = (k.launches, k.routes.get(entry, 0))
     got = rblock_kernel.chain_conv(x, wt, b, **kw)
+    assert (k.launches, k.routes.get(entry, 0)) == (before[0] + 1, before[1] + 1)
     want = rblock_kernel.chain_conv_plain(x, wt, b, **kw)
+    assert got[0].dtype == dtype and got[0].shape == (h - 2, w - 2, cout)
     for g, ref in zip(got, want):
         g, ref = g.float(), ref.float()
         assert ((g - ref).norm() / ref.norm()).item() <= tol
+    if not tc:
+        return
+    assert _stats_err(got[1], want[1], (h - 2) * (w - 2)) <= 1e-2
+    if emit:
+        assert got[2].dtype == torch.bfloat16 and torch.equal(got[2], want[2])
+        # the rows and columns where 16-pixel tiles meet, explicitly
+        for r in (15, 16, 17, h - 1):
+            assert torch.equal(got[2][r], want[2][r])
+        for q in (15, 16, 17, w - 1):
+            assert torch.equal(got[2][:, q], want[2][:, q])
 
 
 @pytest.mark.parametrize("k,stride,pad,cin,cout", [(9, 1, 4, 7, 32), (3, 2, 1, 32, 64),
@@ -89,97 +125,31 @@ def test_front_conv_kernel_matches_plain(cuda, k, stride, pad, cin, cout):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("n,cout,same,relu", [
-    (1, 128, True, False), (3, 128, False, True), (1, 256, False, False), (3, 256, True, True)])
-def test_block_conv_kernel_matches_plain(cuda, dtype, tol, n, cout, same, relu):
-    """K4, one launch for the whole batch, against its plain version
-    (relative L2: 1e-4 float32, 1e-2 bfloat16)."""
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("cout", [128, 256])
+@pytest.mark.parametrize("relu", [False, True])
+def test_block_conv_kernel_matches_plain(cuda, dtype, tol, n, same, cout, relu):
+    """K4, one launch for the whole batch, at a size that is no multiple of
+    the 16 x 16 tile, against its plain version (relative L2: 1e-4
+    float32, 1e-2 bfloat16). Float32 takes the CUDA-core route, bfloat16
+    the tensor-core route."""
     rng = np.random.default_rng(7)
     h, w, c = 21, 35, 128
     x = _t(rng.standard_normal((n, h, w, c)), cuda, dtype)
     wt = _t(rng.standard_normal((cout, c, 3, 3)) / np.sqrt(9 * c), cuda)
     b = _t(rng.standard_normal(cout) * 0.1, cuda)
     fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
-    before = conv_kernel.KERNEL.launches
+    entry = "fav_conv_tc" if dtype == torch.bfloat16 else "fav_conv3x3"
+    k = conv_kernel.KERNEL
+    before = (k.launches, k.routes.get(entry, 0))
     got = fn(x, wt, b, relu)
-    assert conv_kernel.KERNEL.launches == before + 1
+    assert (k.launches, k.routes.get(entry, 0)) == (before[0] + 1, before[1] + 1)
     want = conv_kernel.conv3x3_plain(x, wt, b, relu, 1 if same else 0)
     assert got.dtype == dtype and got.shape == want.shape
     assert got.shape == (n, h if same else h - 2, w if same else w - 2, cout)
     g, ref = got.float(), want.float()
     assert ((g - ref).norm() / ref.norm()).item() <= tol
-    if relu:
-        assert g.min().item() >= 0.0
-
-
-def _stats_err(got, want, count):
-    """The statistics as the instance norm reads them: the mean's error in
-    units of the channel's std, and the variance's relative error."""
-    m, mp = got[0] / count, want[0] / count
-    v, vp = got[1] / count - m * m, want[1] / count - mp * mp
-    return max(((m - mp).abs() / vp.clamp(min=1e-12).sqrt()).max().item(),
-               ((v - vp).abs() / vp.clamp(min=1e-12)).max().item())
-
-
-@pytest.mark.parametrize("h,w", [(37, 29), (67, 131)])
-@pytest.mark.parametrize("eff,relu,skip,emit", [
-    (False, False, False, False), (True, True, False, True), (True, False, True, True),
-    (False, False, False, True)])
-def test_tensor_core_chain_conv_matches_plain(cuda, h, w, eff, relu, skip, emit):
-    """K2 in bfloat16 at 128 -> 128 takes the tensor-core route (one launch,
-    counted on `fav_conv_tc`) at sizes that are no multiple of its 16 x 16
-    tile: y within relative L2 1e-2 and the statistics within 1e-2 of the
-    plain version, and the emitted prologue result `a` bit-identical to the
-    plain prologue everywhere, tile borders included (the kernel rounds
-    after the multiply, the add and the skip add as PyTorch does)."""
-    rng = np.random.default_rng(9)
-    c = 128
-    x = _t(rng.standard_normal((h, w, c)), cuda, torch.bfloat16)
-    wt = _t(rng.standard_normal((c, c, 3, 3)) / np.sqrt(9 * c), cuda)
-    b = _t(rng.standard_normal(c) * 0.1, cuda)
-    kw = dict(eff=_t(np.stack([rng.random(c) + 0.5, rng.standard_normal(c) * 0.1]), cuda)
-              if eff else None, pre_relu=relu,
-              skip=_t(rng.standard_normal((h + 4, w + 4, c)), cuda, torch.bfloat16)
-              if skip else None, emit_input=emit)
-    k = rblock_kernel.KERNEL
-    before = (k.launches, k.routes.get("fav_conv_tc", 0))
-    got = rblock_kernel.chain_conv(x, wt, b, **kw)
-    assert (k.launches, k.routes.get("fav_conv_tc", 0)) == (before[0] + 1, before[1] + 1)
-    want = rblock_kernel.chain_conv_plain(x, wt, b, **kw)
-    y, yp = got[0].float(), want[0].float()
-    assert got[0].dtype == torch.bfloat16 and got[0].shape == (h - 2, w - 2, c)
-    assert ((y - yp).norm() / yp.norm()).item() <= 1e-2
-    assert _stats_err(got[1], want[1], (h - 2) * (w - 2)) <= 1e-2
-    if emit:
-        assert got[2].dtype == torch.bfloat16 and torch.equal(got[2], want[2])
-        # the rows and columns where 16-pixel tiles meet, explicitly
-        for r in (15, 16, 17, h - 1):
-            assert torch.equal(got[2][r], want[2][r])
-        for q in (15, 16, 17, w - 1):
-            assert torch.equal(got[2][:, q], want[2][:, q])
-
-
-@pytest.mark.parametrize("n", [1, 3])
-@pytest.mark.parametrize("same", [True, False])
-@pytest.mark.parametrize("cout", [128, 256])
-@pytest.mark.parametrize("relu", [False, True])
-def test_tensor_core_block_conv_matches_plain(cuda, n, same, cout, relu):
-    """K4 in bfloat16 on the tensor-core route, one launch for the batch, at
-    a ragged size (19 x 37), against its plain version (relative L2 1e-2)."""
-    rng = np.random.default_rng(10)
-    h, w, c = 19, 37, 128
-    x = _t(rng.standard_normal((n, h, w, c)), cuda, torch.bfloat16)
-    wt = _t(rng.standard_normal((cout, c, 3, 3)) / np.sqrt(9 * c), cuda)
-    b = _t(rng.standard_normal(cout) * 0.1, cuda)
-    fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
-    k = conv_kernel.KERNEL
-    before = (k.launches, k.routes.get("fav_conv_tc", 0))
-    got = fn(x, wt, b, relu)
-    assert (k.launches, k.routes.get("fav_conv_tc", 0)) == (before[0] + 1, before[1] + 1)
-    want = conv_kernel.conv3x3_plain(x, wt, b, relu, 1 if same else 0)
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
-    g, ref = got.float(), want.float()
-    assert ((g - ref).norm() / ref.norm()).item() <= 1e-2
     if relu:
         assert g.min().item() >= 0.0
 
@@ -316,9 +286,18 @@ def test_kernels_launch_on_the_tensors_card(cuda):
     x = _t(rng.standard_normal((20, 24, 32)), dev)
     wt = _t(rng.standard_normal((32, 32, 3, 3)) / 17, dev)
     b = _t(rng.standard_normal(32) * 0.1, dev)
+    # bfloat16 128 -> 128: the tensor-core kernel, whose larger shared-memory
+    # limit is lifted per card as well
+    xb = _t(rng.standard_normal((20, 24, 128)), dev, torch.bfloat16)
+    wb = _t(rng.standard_normal((128, 128, 3, 3)) / 34, dev)
+    bb = _t(rng.standard_normal(128) * 0.1, dev)
 
     face = _t(rng.random((40, 40, 3)), dev)
     strip = strip_warp_kernel.make_static_strip_warp(_vr_maps(40, 12)[2])
+
+    def rel(g, ref):
+        g, ref = g.float(), ref.float()
+        return ((g - ref).norm() / ref.norm()).item()
 
     def check():
         got = warp_kernel.warp_banded(img, flow, 8)
@@ -328,7 +307,15 @@ def test_kernels_launch_on_the_tensors_card(cuda):
         assert (strip(face) - strip.plain(face)).abs().max().item() <= 1e-5
         for g, ref in zip(rblock_kernel.chain_conv(x, wt, b),
                           rblock_kernel.chain_conv_plain(x, wt, b)):
-            assert ((g - ref).norm() / ref.norm()).item() <= 1e-4
+            assert rel(g, ref) <= 1e-4
+        kernels = (rblock_kernel.KERNEL, conv_kernel.KERNEL)
+        before = [k.routes.get("fav_conv_tc", 0) for k in kernels]
+        for g, ref in zip(rblock_kernel.chain_conv(xb, wb, bb),
+                          rblock_kernel.chain_conv_plain(xb, wb, bb)):
+            assert rel(g, ref) <= 1e-2
+        assert rel(conv_kernel.conv3x3(xb[None], wb, bb),
+                   conv_kernel.conv3x3_plain(xb[None], wb, bb)) <= 1e-2
+        assert [k.routes.get("fav_conv_tc", 0) for k in kernels] == [n + 1 for n in before]
 
     assert torch.cuda.current_device() == 0
     check()
@@ -363,6 +350,9 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     x4 = torch.zeros(2, 8, 8, 128, device=cuda)
     with pytest.raises(TypeError):
         conv_kernel.conv3x3(x4.half(), w4, b4)
+    with pytest.raises(ValueError):                         # bfloat16 outside K4's widths
+        conv_kernel.conv3x3(torch.zeros(2, 8, 8, 96, device=cuda, dtype=torch.bfloat16),
+                            torch.zeros(128, 96, 3, 3, device=cuda), b4)
     with pytest.raises(ValueError):                         # not contiguous NHWC
         conv_kernel.conv3x3(x4.permute(0, 2, 1, 3), w4, b4)
     with pytest.raises(ValueError):                         # a 5x5 kernel
