@@ -8,20 +8,22 @@ Phases (any failure exits non-zero, before the result line is printed):
      limit as nvidia-smi reports them;
   2. build the hand-written kernels from csrc/ (nvcc, sm_90a), and count
      the tensor-core instructions (HGMMA / HMMA) in the SASS of conv_tc.cu's
-     kernel (cuobjdump): it fails without them;
+     kernel and of every instantiation of front_tc.cu's (cuobjdump): it
+     fails without them, and without HGMMA in front_tc.cu's;
   3. each kernel against its plain PyTorch version at the shapes the main
      paths give it (kernel, plain and library-call times: CUDA events,
      median of 20; the kernel's own device time: torch.profiler), with the
      least time the card could take (bound_ms). K2 and K4 in bfloat16 take
-     the tensor-core route (conv_tc.cu), in float32 the CUDA-core one
-     (conv_in.cu); each case checks that its launch took the route that
-     ops/_conv_in.py's rule names;
+     the tensor-core route of conv_tc.cu, K3's three layers in bfloat16
+     that of front_tc.cu (each no slower than conv2d on events), float32
+     the CUDA-core one (conv_in.cu); each case checks that its launch took
+     the route that ops/_conv_in.py's rule names;
   4. the 2D main path: the streaming stylizer (bundled demo model, bundled
      flow estimator, flow at half resolution) on 12 seeded 1080p pan
      frames, float32 then bfloat16, through the CLI's build functions and
      VideoDriver.run; the launch counters must rise by the expected amount
-     per frame, every K2 launch of the bfloat16 run and none of the
-     float32 run must take the tensor-core route, and every output must be
+     per frame, every K2 and K3 launch of the bfloat16 run and none of the
+     float32 run must take a tensor-core route, and every output must be
      finite; fps with and without PNG encoding, and the device's busy share
      without it (torch.profiler);
   5. the port on the card against the JAX package's committed 2D CLI output
@@ -58,8 +60,10 @@ JSON line with one row per kernel (name, route, source, the TPU kernel it
 replaces, launches in its main path's float32 run, max abs error, kernel,
 device, plain, bound and library-call milliseconds, and under "bfloat16"
 the same figures of its bfloat16 form: route, source, C entry, launches in
-the bfloat16 run and how many of them took the tensor cores) and {"ok":
-true, "device": {...}}. float32 runs with TF32 off.
+the bfloat16 run and how many of them took the tensor cores; K3's row also
+lists its three layers under "layers", each with its shape and both
+dtypes' C entry and figures) and {"ok": true, "device": {...}}. float32
+runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -83,9 +87,14 @@ VR_PAN = (8, 2)
 # bytes over the memory rate and its operations over the rate of its type
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# the kernels with a tensor-core route (K2, K4): bfloat16 at their widths
-TC_KERNELS = ("res_chain_conv", "conv3x3")
-TC_SOURCE = "fast_artistic_videos_tpu_torch/csrc/conv_tc.cu"
+# the kernels with a tensor-core route (K2, K4, K3): bfloat16 at their shapes;
+# the source of each tensor-core C entry, and the kernel symbol the profiler
+# and cuobjdump name for each C entry
+TC_KERNELS = ("res_chain_conv", "conv3x3", "front_conv")
+TC_SOURCES = {"fav_conv_tc": "fast_artistic_videos_tpu_torch/csrc/conv_tc.cu",
+              "fav_front_tc": "fast_artistic_videos_tpu_torch/csrc/front_tc.cu"}
+SYMBOLS = {"fav_conv_tc": "conv_tc_kernel", "fav_front_tc": "front_tc_kernel",
+           "fav_conv_in": "conv_in_kernel", "fav_conv3x3": "conv_in_kernel"}
 
 
 def log(*a):
@@ -168,12 +177,13 @@ def _reset(kernels):
 
 
 def _check_routes(kernels, launches, dtype, where):
-    """Every K2/K4 launch of a bfloat16 run took the tensor-core route and
+    """Every K2/K3/K4 launch of a bfloat16 run took a tensor-core route and
     none of a float32 run did (the rule of ops/_conv_in.py at the stylizer's
-    128-channel widths)."""
+    shapes)."""
     from fast_artistic_videos_tpu_torch.ops import _conv_in
 
-    tc = {name: k.routes.get(_conv_in.TC_ENTRY, 0) for name, k in kernels.items()}
+    tc = {name: sum(k.routes.get(e, 0) for e in _conv_in.TC_ENTRIES)
+          for name, k in kernels.items()}
     want = {name: (launches[name] if dtype == "bfloat16" and name in TC_KERNELS else 0)
             for name in kernels}
     log(f"{where} {dtype}: tensor-core launches {tc}, expected {want}")
@@ -195,8 +205,8 @@ def _profile_ms(torch, fn, name, n=20):
 
 
 def sass_mma_counts(lib_path):
-    """{kernel symbol: (HGMMA, HMMA)} of the kernels of conv_tc.cu in the
-    built library's SASS (cuobjdump)."""
+    """{kernel symbol: (HGMMA, HMMA)} of the tensor-core kernels (conv_tc.cu,
+    front_tc.cu) in the built library's SASS (cuobjdump)."""
     import re
 
     from fast_artistic_videos_tpu_torch.ops import _build
@@ -209,7 +219,7 @@ def sass_mma_counts(lib_path):
     counts = {}
     for chunk in out.stdout.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "conv_tc_kernel" in name:
+        if SYMBOLS["fav_conv_tc"] in name or SYMBOLS["fav_front_tc"] in name:
             counts[name] = (len(re.findall(r"\bHGMMA\b", chunk)),
                             len(re.findall(r"\bHMMA\b", chunk)))
     return counts
@@ -288,8 +298,7 @@ def check_kernels(torch):
                              torch.randn(cin, generator=g) * 0.1]).to(dev)
         s = torch.randn(h + 4, w + 4, cin, generator=g).to(dev, dtype) if skip else None
         kw = dict(stride=stride, pad=pad, eff=e, relu=relu, skip=s, emit_input=emit)
-        tc = _conv_in.tensor_core_route(dtype, k, k, stride, pad, cin, cout)
-        entry = _conv_in.TC_ENTRY if tc else "fav_conv_in"
+        entry = _conv_in.tensor_core_route(dtype, k, k, stride, pad, cin, cout) or "fav_conv_in"
         before = kernel.routes.get(entry, 0)
         got = _conv_in.conv_in(kernel, x, wt, b, **kw)
         want = _conv_in.conv_in_plain(x, wt, b, **kw)
@@ -313,7 +322,7 @@ def check_kernels(torch):
         tol = 1e-4 if dtype == f32 else 1e-2
         ms = _time_ms(torch, lambda: _conv_in.conv_in(kernel, x, wt, b, **kw))
         dev_ms = _profile_ms(torch, lambda: _conv_in.conv_in(kernel, x, wt, b, **kw),
-                             "conv_tc_kernel" if tc else "conv_in_kernel")
+                             SYMBOLS[entry])
         plain_ms = _time_ms(torch, lambda: _conv_in.conv_in_plain(x, wt, b, **kw))
         # the library yardstick: the convolution alone (cuDNN), without the
         # fused prologue and statistics
@@ -324,16 +333,20 @@ def check_kernels(torch):
                   + (x.numel() if emit else 0)) * esz + wt.numel() * 4
         b_ms, b_by = bound(nbytes, 2 * y.shape[0] * y.shape[1] * cout * cin * k * k,
                            _dname(torch, dtype))
-        log(f"{kernel.name} ({h},{w},{cin})->{cout} k{k} s{stride} p{pad} eff={eff} "
+        shape = f"({h},{w},{cin})->{cout} k{k} s{stride} p{pad}"
+        log(f"{kernel.name} {shape} eff={eff} "
             f"relu={relu} skip={skip} emit={emit} {dtype} via {entry}: rel_l2 {rel:.3g} "
             f"stats {st:.3g} emit_err {a_err:.3g} max_abs {err:.3g} (tol {tol:g}) "
             f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, profiler) plain {plain_ms:.4f} ms "
             f"conv2d {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
         if not (rel <= tol and st <= tol and a_err <= tol):
             raise AssertionError(f"{kernel.name} mismatch: rel {rel} stats {st} a {a_err}")
+        if entry == _conv_in.FRONT_TC_ENTRY and not lib_ms >= ms:
+            raise AssertionError(f"{kernel.name} {shape} {dtype} via {entry}: {ms} ms, "
+                                 f"slower than conv2d's {lib_ms} ms")
         res[kernel.name].append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype,
                                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                     device_ms=dev_ms, entry=entry))
+                                     device_ms=dev_ms, entry=entry, shape=shape))
 
     K3, K2 = front_kernel.KERNEL, rblock_kernel.KERNEL
     for dtype in (f32, bf16):
@@ -370,8 +383,7 @@ def check_block_conv(torch, g):
         b = (torch.randn(cout, generator=g) * 0.1).cuda()
         pad = 1 if same else 0
         fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
-        tc = _conv_in.tensor_core_route(dtype, 3, 3, 1, pad, cin, cout)
-        entry = _conv_in.TC_ENTRY if tc else "fav_conv3x3"
+        entry = _conv_in.tensor_core_route(dtype, 3, 3, 1, pad, cin, cout) or "fav_conv3x3"
         before = conv_kernel.KERNEL.routes.get(entry, 0)
         got = fn(x, wt, b, relu)
         want = conv_kernel.conv3x3_plain(x, wt, b, relu, pad)
@@ -383,8 +395,7 @@ def check_block_conv(torch, g):
         err = (y - yp).abs().max().item()
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         ms = _time_ms(torch, lambda: fn(x, wt, b, relu))
-        dev_ms = _profile_ms(torch, lambda: fn(x, wt, b, relu),
-                             "conv_tc_kernel" if tc else "conv_in_kernel")
+        dev_ms = _profile_ms(torch, lambda: fn(x, wt, b, relu), SYMBOLS[entry])
         plain_ms = _time_ms(torch, lambda: conv_kernel.conv3x3_plain(x, wt, b, relu, pad))
         xc, wc, bc = x.permute(0, 3, 1, 2), wt.to(dtype), b.to(dtype)
         lib_ms = _time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, bc, 1, pad))
@@ -1036,8 +1047,12 @@ def main() -> int:
     mma = sass_mma_counts(_build.LIBRARY.path())
     for name, (hgmma, hmma) in mma.items():
         log(f"SASS of {name}: {hgmma} HGMMA, {hmma} HMMA instructions (cuobjdump)")
-    if not mma or not all(hg + hm > 0 for hg, hm in mma.values()):
-        raise AssertionError(f"conv_tc.cu's kernel has no tensor-core instructions: {mma}")
+    # conv_tc.cu's kernel and every instantiation of front_tc.cu's (wgmma)
+    fronts = [name for name in mma if SYMBOLS["fav_front_tc"] in name]
+    if (not fronts or len(fronts) == len(mma)
+            or not all(hg + hm > 0 for hg, hm in mma.values())
+            or not all(mma[name][0] > 0 for name in fronts)):
+        raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {mma}")
     # 3. kernels
     res = check_kernels(torch)
     with tempfile.TemporaryDirectory() as work:
@@ -1057,7 +1072,10 @@ def main() -> int:
     rows = []
     # launches: K5 from the VR path's runs, K4 from the batched path's, the
     # others from the 2D path's; float32 at the top level, bfloat16 beside
-    from fast_artistic_videos_tpu_torch.ops import _conv_in
+    def figures(c):
+        return {"ms": c["ms"], "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c["library_ms"]}
 
     kernels = _kernels()
     for name, launches, tc in (("warp_banded", counted, routes),
@@ -1071,23 +1089,29 @@ def main() -> int:
         first = next(c for c in cases if c["dtype"] == torch.float32)
         bf = next(c for c in cases if c["dtype"] == torch.bfloat16)
         n_bf = launches["bfloat16"][k.name]
-        rows.append({"name": k.name, "route": "cuda", "source": k.source,
-                     "replaces": k.replaces, "launches": launches["float32"][k.name],
-                     "max_abs_err": max(c["err"] for c in cases if c["dtype"] == torch.float32),
-                     "ms": first["ms"], "device_ms": first["device_ms"],
-                     "plain_ms": first["plain_ms"],
-                     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-                     "library_ms": first["library_ms"],
-                     "bfloat16": {
-                         "route": "cuda",
-                         "source": TC_SOURCE if bf["entry"] == _conv_in.TC_ENTRY else k.source,
-                         "entry": bf["entry"], "launches": n_bf,
-                         "tensor_core_launches": tc["bfloat16"][k.name],
-                         "max_abs_err": max(c["err"] for c in cases
-                                            if c["dtype"] == torch.bfloat16),
-                         "ms": bf["ms"], "device_ms": bf["device_ms"],
-                         "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
-                         "bound_by": bf["bound_by"], "library_ms": bf["library_ms"]}})
+        row = {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+               "launches": launches["float32"][k.name],
+               "max_abs_err": max(c["err"] for c in cases if c["dtype"] == torch.float32),
+               **figures(first),
+               "bfloat16": {"route": "cuda", "source": TC_SOURCES.get(bf["entry"], k.source),
+                            "entry": bf["entry"], "launches": n_bf,
+                            "tensor_core_launches": tc["bfloat16"][k.name],
+                            "max_abs_err": max(c["err"] for c in cases
+                                               if c["dtype"] == torch.bfloat16),
+                            **figures(bf)}}
+        if name == "front_conv":
+            # K3's three layers, each in both dtypes (its first three cases
+            # per dtype are layers 0, 1 and 2 of the main path)
+            per = {d: [c for c in cases if c["dtype"] == d][:3]
+                   for d in (torch.float32, torch.bfloat16)}
+            row["layers"] = [
+                {"layer": i, "shape": f32["shape"],
+                 "float32": {"entry": f32["entry"], **figures(f32)},
+                 "bfloat16": {"entry": b16["entry"],
+                              "source": TC_SOURCES.get(b16["entry"], k.source),
+                              **figures(b16)}}
+                for i, (f32, b16) in enumerate(zip(per[torch.float32], per[torch.bfloat16]))]
+        rows.append(row)
     log(f"fps 1080p float32 {fps['float32']:.3f} bfloat16 {fps['bfloat16']:.3f}")
     log(f"fps VR {VR_FACE}^2 faces float32 {vr_fps['float32']:.3f} "
         f"({vr_fps['float32_no_png']:.3f} without PNG) bfloat16 {vr_fps['bfloat16']:.3f} "

@@ -38,10 +38,12 @@
 // the whole batch in one launch (blockIdx.z = image * Cout blocks + block).
 //
 // Which configurations run here: every float32 conv, and the bfloat16 K2/K3
-// convs that ops/_conv_in.py's `tensor_core_route` leaves here (the front,
-// K3, and chain widths that are no multiple of 64 in / 128 out). Bfloat16
-// K2 at the stylizer's 128-channel widths and every bfloat16 K4 conv run on
-// the tensor cores in conv_tc.cu.
+// convs that ops/_conv_in.py's `tensor_core_route` leaves here (chain
+// widths that are no multiple of 64 in / 128 out, front shapes other than
+// the stylizer's). Bfloat16 K2 at the stylizer's 128-channel widths and
+// every bfloat16 K4 conv run on the tensor cores in conv_tc.cu, the
+// bfloat16 front (K3: 9x9 at Cin <= 8, 3x3 stride 2 at Cin % 32 == 0 and
+// Cout % 64 == 0) in front_tc.cu.
 //
 // What bounds it on the H100: CUDA-core FMAs. At f32 the R128 chain is 42.3
 // GFLOP per conv at 1080p (290x500 -> 288x498), layer 0 84.2 GFLOP and a

@@ -40,6 +40,7 @@ SIGNATURES = {
     "fav_conv3x3": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "fav_strip_warp": [_P] * 6 + [_I] * 12 + [_P],
     "fav_conv_tc": [_P] * 8 + [_I] * 8 + [_P],
+    "fav_front_tc": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 
@@ -57,7 +58,8 @@ class Library:
 
     def digest(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for path in self.sources():
+        headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+        for path in self.sources() + headers:
             h.update(os.path.basename(path).encode())
             with open(path, "rb") as f:
                 h.update(f.read())

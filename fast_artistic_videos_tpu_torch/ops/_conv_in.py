@@ -11,13 +11,17 @@ parameter layout) and are cast to x's dtype, as the Pallas kernels do.
 Values are rounded to the storage dtype after the affine, after the skip
 add and at the store; the statistics are float32.
 
-Two routes, chosen by :func:`tensor_core_route`, a pure function of the
-dtype and the conv's shape: bfloat16 3x3 stride-1 convs with Cin % 64 == 0
-and Cout % 128 == 0 (every conv of the R128 residual chain, K2, and every
-block conv of K4) launch the tensor-core kernel ``conv_tc.cu`` (entry
-``fav_conv_tc``); float32, the front's convs (K3) and narrower widths
-launch the CUDA-core template ``conv_in.cu``. Either route raises on a
-failed launch; neither falls back to the other.
+Three routes, chosen by :func:`tensor_core_route`, a pure function of the
+dtype and the conv's shape. In bfloat16: 3x3 stride-1 convs with Cin % 64
+== 0 and Cout % 128 == 0 (every conv of the R128 residual chain, K2, and
+every block conv of K4) launch the tensor-core kernel ``conv_tc.cu`` (entry
+``fav_conv_tc``); the front's shapes (K3: 9x9 stride 1 pad 4 with Cin <= 8
+and Cout % 32 == 0, layer 0; 3x3 stride 2 pad 1 with Cin % 32 == 0 and
+Cout % 64 == 0, layers 1 and 2) launch the tensor-core kernel
+``front_tc.cu`` (entry ``fav_front_tc``, weights packed by
+:func:`pack_front_weights`). Float32 and every other shape launch the
+CUDA-core template ``conv_in.cu``. Every route raises on a failed launch;
+none falls back to another.
 """
 
 from __future__ import annotations
@@ -28,14 +32,63 @@ import torch.nn.functional as F
 from ._build import Kernel, ptr
 
 TC_ENTRY = "fav_conv_tc"
+FRONT_TC_ENTRY = "fav_front_tc"
+TC_ENTRIES = (TC_ENTRY, FRONT_TC_ENTRY)
 
 
 def tensor_core_route(dtype, kh: int, kw: int, stride: int, pad: int, cin: int,
-                      cout: int) -> bool:
-    """True when a conv runs on the tensor-core kernel ``conv_tc.cu``:
-    bfloat16, 3x3, stride 1, pad 0 or 1, Cin % 64 == 0, Cout % 128 == 0."""
-    return (dtype == torch.bfloat16 and kh == 3 and kw == 3 and stride == 1
-            and pad in (0, 1) and cin % 64 == 0 and cout % 128 == 0)
+                      cout: int):
+    """The tensor-core C entry a conv launches, or None for the CUDA-core
+    template ``conv_in.cu``. Bfloat16 only: ``fav_conv_tc`` for 3x3, stride
+    1, pad 0 or 1, Cin % 64 == 0, Cout % 128 == 0; ``fav_front_tc`` for
+    9x9, stride 1, pad 4, Cin <= 8, Cout % 32 == 0 and for 3x3, stride 2,
+    pad 1, Cin % 32 == 0, Cout % 64 == 0."""
+    if dtype != torch.bfloat16 or kh != kw:
+        return None
+    if kh == 3 and stride == 1 and pad in (0, 1) and cin % 64 == 0 and cout % 128 == 0:
+        return TC_ENTRY
+    if kh == 9 and stride == 1 and pad == 4 and cin <= 8 and cout % 32 == 0:
+        return FRONT_TC_ENTRY
+    if kh == 3 and stride == 2 and pad == 1 and cin % 32 == 0 and cout % 64 == 0:
+        return FRONT_TC_ENTRY
+    return None
+
+
+def front_chunk(kh: int, cin: int) -> int:
+    """Input channels per shared-memory chunk of ``front_tc.cu``: 8 for the
+    9x9 layer (one 16-byte group per pixel), else 64 when Cin allows, 32."""
+    return 8 if kh == 9 else (64 if cin % 64 == 0 else 32)
+
+
+def pack_front_weights(w):
+    """OIHW weights -> the (slices, Cout, 64) bfloat16 layout that
+    ``front_tc.cu`` reads, one 64-wide K slice after another. Per input
+    chunk of :func:`front_chunk` channels, K walks the kernel rows, then
+    the taps of a row, then the chunk's channels; the channels are padded
+    to the chunk and a 9-tap row to 10 taps (with 8 channels a k16 step is
+    two taps, and a step never straddles two rows), each with zero weights,
+    and each chunk's K to a multiple of 64."""
+    cout, cin, kh, kw = w.shape
+    cp = front_chunk(kh, cin)
+    kwp = kw + (kw & 1) if cp == 8 else kw
+    nchunk = -(-cin // cp)
+    wt = w.to(torch.bfloat16).permute(0, 2, 3, 1)                   # (Cout, KH, KW, Cin)
+    wt = F.pad(wt, (0, nchunk * cp - cin, 0, kwp - kw))
+    wt = wt.reshape(cout, kh, kwp, nchunk, cp).permute(0, 3, 1, 2, 4)
+    k = kh * kwp * cp
+    wt = F.pad(wt.reshape(cout, nchunk, k), (0, -(-k // 64) * 64 - k))
+    return wt.reshape(cout, -1, 64).permute(1, 0, 2).contiguous()
+
+
+def _front_weights(w):
+    """:func:`pack_front_weights` of `w`, kept on the tensor until it is
+    modified in place (its version changes): the stylizer's weights are
+    packed once, not on every launch."""
+    cached = getattr(w, "_front_tc_pack", None)
+    if cached is None or cached[0] != w._version:
+        cached = (w._version, pack_front_weights(w))
+        w._front_tc_pack = cached
+    return cached[1]
 
 
 def launch_tc(kernel: Kernel, x, w, bt, y, *, pad: int, eff=None, relu: bool = False,
@@ -84,7 +137,8 @@ def conv_in_plain(x, w, b, *, stride: int, pad: int, eff=None, relu: bool = Fals
 def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
             relu: bool = False, skip=None, emit_input: bool = False):
     """Launch `kernel` (K2 or K3) on a CUDA tensor, on the route that
-    :func:`tensor_core_route` names; plain version on CPU. Returns (y,
+    :func:`tensor_core_route` names (the front's route takes no skip and
+    no emission); plain version on CPU. Returns (y,
     stats) or (y, stats, a) with emit_input."""
     if x.device.type == "cpu":
         return conv_in_plain(x, w, b, stride=stride, pad=pad, eff=eff, relu=relu,
@@ -120,10 +174,22 @@ def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
     y = torch.empty((hout, wout, cout), dtype=dtype, device=x.device)
     stats = torch.zeros((2, cout), dtype=torch.float32, device=x.device)
     a = torch.empty_like(x) if emit_input else None
-    if tensor_core_route(dtype, kh, kw, stride, pad, cin, cout):
+    route = tensor_core_route(dtype, kh, kw, stride, pad, cin, cout)
+    if route == TC_ENTRY:
         launch_tc(kernel, x[None], w, bt, y[None], pad=pad, eff=effc, relu=relu,
                   skip=skip, stats=stats, a=a)
         return (y, stats, a) if emit_input else (y, stats)
+    if route == FRONT_TC_ENTRY:
+        if skip is not None or emit_input:
+            raise ValueError(f"{kernel.name}: the front's tensor-core route takes no "
+                             f"skip and emits no input")
+        if (cin % 32 == 0 and x.data_ptr() % 16) or y.data_ptr() % 16:
+            raise ValueError(f"{kernel.name}: the tensor-core route needs 16-byte "
+                             f"aligned tensors")
+        kernel.call(FRONT_TC_ENTRY, x.device, ptr(x), ptr(_front_weights(w)), ptr(bt),
+                    ptr(effc), ptr(y), ptr(stats), hin, win, cin, cout, kh, stride, pad,
+                    int(relu))
+        return y, stats
     wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()          # HWIO
     kernel.call("fav_conv_in", x.device, ptr(x), ptr(wt), ptr(bt), ptr(effc),
                 ptr(skip), ptr(y), ptr(stats), ptr(a), hin, win, cin, hout, wout,

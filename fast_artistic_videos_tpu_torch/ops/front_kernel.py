@@ -10,7 +10,12 @@ c9s1-32 as (9, 9, 1, 4), then d64 and d128 as (3, 3, 2, 1).
 The TPU computes these layers in a 16-phase space-to-depth layout with
 top-margin bookkeeping (``out_row_shift``, ``chain_plan``) so its MXU sees
 128-lane operands; the port works directly on the logical NHWC grid.
-CUDA kernel: ``csrc/conv_in.cu``.
+CUDA kernels, by ``_conv_in.tensor_core_route``: in bfloat16 the three
+layers run on the tensor cores (``csrc/front_tc.cu``, entry
+``fav_front_tc``: an implicit GEMM with the stride-2 halo stored by column
+parity and the 9x9 layer's K packed along the kernel row); in float32 on
+the CUDA-core template ``csrc/conv_in.cu``. ``KERNEL.routes`` counts the
+launches of each.
 """
 
 from __future__ import annotations

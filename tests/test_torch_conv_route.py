@@ -1,13 +1,16 @@
 """The port's conv routing rule and its C entry signatures, on the CPU.
 
 ``ops/_conv_in.tensor_core_route`` is a pure function of the dtype and the
-conv's shape: bfloat16 3x3 stride-1 convs with Cin % 64 == 0 and Cout % 128
-== 0 (the residual chain, K2, and the block convs, K4) run on the tensor
-cores (``csrc/conv_tc.cu``); float32, the front's convs (K3) and narrower
-widths stay on ``csrc/conv_in.cu``. The C entries are bound through ctypes
-with the argument kinds of ``ops/_build.SIGNATURES``: a pointer declared
-there as an int would be cut to 32 bits without any error, so every
-``extern "C"`` entry of ``csrc/*.cu`` is checked against it here.
+conv's shape that names the tensor-core C entry a conv launches: in
+bfloat16, 3x3 stride-1 convs with Cin % 64 == 0 and Cout % 128 == 0 (the
+residual chain, K2, and the block convs, K4) run on ``csrc/conv_tc.cu``
+(``fav_conv_tc``), the front's shapes (K3: 9x9 stride 1 with Cin <= 8 and
+Cout % 32 == 0; 3x3 stride 2 with Cin % 32 == 0 and Cout % 64 == 0) on
+``csrc/front_tc.cu`` (``fav_front_tc``); float32 and other shapes stay on
+``csrc/conv_in.cu`` (None). The C entries are bound through ctypes with the
+argument kinds of ``ops/_build.SIGNATURES``: a pointer declared there as an
+int would be cut to 32 bits without any error, so every ``extern "C"``
+entry of ``csrc/*.cu`` is checked against it here.
 """
 
 import ctypes
@@ -21,32 +24,44 @@ import torch
 from fast_artistic_videos_tpu_torch.ops import _build, _conv_in
 
 BF16, F32 = torch.bfloat16, torch.float32
+TC, FRONT = "fav_conv_tc", "fav_front_tc"
 
 
 @pytest.mark.parametrize("dtype,k,stride,pad,cin,cout,want", [
-    (BF16, 3, 1, 0, 128, 128, True),      # K2: every conv of the R128 chain
-    (BF16, 3, 1, 0, 128, 256, True),
-    (BF16, 3, 1, 1, 128, 128, True),      # K4 SAME
-    (BF16, 3, 1, 0, 256, 256, True),      # K4 VALID, wider
-    (BF16, 3, 1, 1, 64, 128, True),       # one 64-channel chunk
-    (F32, 3, 1, 0, 128, 128, False),      # float32 keeps the CUDA-core route
-    (F32, 3, 1, 1, 256, 256, False),
-    (BF16, 9, 1, 4, 7, 32, False),        # K3 layer 0
-    (BF16, 3, 2, 1, 32, 64, False),       # K3 layer 1
-    (BF16, 3, 2, 1, 64, 128, False),      # K3 layer 2: stride 2
-    (BF16, 3, 1, 0, 40, 48, False),       # narrow widths
-    (BF16, 3, 1, 0, 96, 128, False),      # Cin not a multiple of 64
-    (BF16, 3, 1, 0, 128, 64, False),      # Cout not a multiple of 128
-    (BF16, 3, 1, 2, 128, 128, False),     # pad beyond the halo
-    (torch.float16, 3, 1, 0, 128, 128, False),
+    (BF16, 3, 1, 0, 128, 128, TC),        # K2: every conv of the R128 chain
+    (BF16, 3, 1, 0, 128, 256, TC),
+    (BF16, 3, 1, 1, 128, 128, TC),        # K4 SAME
+    (BF16, 3, 1, 0, 256, 256, TC),        # K4 VALID, wider
+    (BF16, 3, 1, 1, 64, 128, TC),         # one 64-channel chunk
+    (F32, 3, 1, 0, 128, 128, None),       # float32 keeps the CUDA-core route
+    (F32, 3, 1, 1, 256, 256, None),
+    (BF16, 9, 1, 4, 7, 32, FRONT),        # K3 layer 0
+    (BF16, 3, 2, 1, 32, 64, FRONT),       # K3 layer 1
+    (BF16, 3, 2, 1, 64, 128, FRONT),      # K3 layer 2
+    (BF16, 9, 1, 4, 3, 64, FRONT),        # the front's other widths
+    (BF16, 3, 2, 1, 96, 64, FRONT),
+    (F32, 9, 1, 4, 7, 32, None),          # the front in float32
+    (F32, 3, 2, 1, 32, 64, None),
+    (F32, 3, 2, 1, 64, 128, None),
+    (BF16, 3, 2, 1, 20, 40, None),        # a narrow stride-2 conv
+    (BF16, 9, 1, 4, 16, 32, None),        # 9x9 beyond one 8-channel group
+    (BF16, 9, 1, 4, 7, 48, None),         # Cout not a multiple of 32
+    (BF16, 3, 2, 0, 32, 64, None),        # stride 2 without the pad of 1
+    (BF16, 5, 1, 2, 7, 32, None),         # another front kernel size
+    (BF16, 3, 1, 0, 40, 48, None),        # narrow widths
+    (BF16, 3, 1, 0, 96, 128, None),       # Cin not a multiple of 64
+    (BF16, 3, 1, 0, 128, 64, None),       # Cout not a multiple of 128
+    (BF16, 3, 1, 2, 128, 128, None),      # pad beyond the halo
+    (torch.float16, 3, 1, 0, 128, 128, None),
 ])
 def test_tensor_core_route_rule(dtype, k, stride, pad, cin, cout, want):
-    assert _conv_in.tensor_core_route(dtype, k, k, stride, pad, cin, cout) is want
+    assert _conv_in.tensor_core_route(dtype, k, k, stride, pad, cin, cout) == want
 
 
 def test_tensor_core_route_covers_the_stylizer_widths():
     """The demo model's residual blocks are 128 -> 128: in bfloat16 every K2
-    and K4 conv takes the tensor cores, and no K3 layer does."""
+    and K4 conv takes conv_tc.cu, and the front's three layers (K3) take
+    front_tc.cu; in float32 none takes the tensor cores."""
     from fast_artistic_videos_tpu_torch.models import checkpoint
 
     spec = checkpoint.load_model("demo", "cpu")[0]
@@ -54,14 +69,17 @@ def test_tensor_core_route_covers_the_stylizer_widths():
     assert blocks
     for l in blocks:
         d = l.out_channels
-        assert _conv_in.tensor_core_route(BF16, 3, 3, 1, 0, d, d)
-        assert _conv_in.tensor_core_route(BF16, 3, 3, 1, 1, d, d)
-        assert not _conv_in.tensor_core_route(F32, 3, 3, 1, 0, d, d)
+        assert _conv_in.tensor_core_route(BF16, 3, 3, 1, 0, d, d) == TC
+        assert _conv_in.tensor_core_route(BF16, 3, 3, 1, 1, d, d) == TC
+        assert _conv_in.tensor_core_route(F32, 3, 3, 1, 0, d, d) is None
     front = spec.layers[:3]
+    assert [(l.ksize, l.stride, l.out_channels) for l in front] == [(9, 1, 32), (3, 2, 64),
+                                                                      (3, 2, 128)]
     cin = spec.in_channels
     for l in front:
-        assert not _conv_in.tensor_core_route(BF16, l.ksize, l.ksize, l.stride, l.pad, cin,
-                                              l.out_channels)
+        shape = (l.ksize, l.ksize, l.stride, l.pad, cin, l.out_channels)
+        assert _conv_in.tensor_core_route(BF16, *shape) == FRONT
+        assert _conv_in.tensor_core_route(F32, *shape) is None
         cin = l.out_channels
 
 
@@ -88,7 +106,7 @@ def _c_entries():
 
 def test_every_c_entry_has_a_matching_signature():
     entries = _c_entries()
-    assert "fav_conv_tc" in entries and "fav_conv_in" in entries
+    assert {"fav_conv_tc", "fav_front_tc", "fav_conv_in"} <= set(entries)
     assert set(entries) == set(_build.SIGNATURES)
     for name, kinds in entries.items():
         bound = ["p" if t is ctypes.c_void_p else "i" if t is ctypes.c_int else "?"

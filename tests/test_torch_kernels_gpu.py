@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
-from fast_artistic_videos_tpu_torch.ops import conv_kernel, front_kernel, rblock_kernel
+from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel, front_kernel, rblock_kernel
 from fast_artistic_videos_tpu_torch.ops import warp_kernel
 from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
 from fast_artistic_videos_tpu_torch.video import vr_geometry as vr
@@ -110,18 +110,56 @@ def test_chain_conv_kernel_matches_plain(cuda, dtype, tol, eff, relu, skip, emit
             assert torch.equal(got[2][:, q], want[2][:, q])
 
 
-@pytest.mark.parametrize("k,stride,pad,cin,cout", [(9, 1, 4, 7, 32), (3, 2, 1, 32, 64),
-                                                   (3, 2, 1, 20, 40)])
-def test_front_conv_kernel_matches_plain(cuda, k, stride, pad, cin, cout):
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("h,w", [(52, 68), (37, 45)])
+@pytest.mark.parametrize("k,stride,pad,cin,cout", [
+    (9, 1, 4, 7, 32), (3, 2, 1, 32, 64), (3, 2, 1, 64, 128),   # the stylizer's layers 0-2
+    (9, 1, 4, 3, 64), (3, 2, 1, 96, 128), (3, 2, 1, 128, 64),  # other tensor-core widths
+    (3, 2, 1, 20, 40)])                                       # CUDA cores in both dtypes
+def test_front_conv_kernel_matches_plain(cuda, dtype, tol, prologue, h, w, k, stride, pad,
+                                         cin, cout):
+    """K3, one launch, against its plain version at sizes that are no
+    multiple of its tiles, with the instance-norm affine + ReLU prologue on
+    and off (relative L2 of y and of the statistics: 1e-4 float32, 1e-2
+    bfloat16). Bfloat16 at the front's shapes takes the tensor-core route
+    (front_tc.cu: 9x9 at Cin <= 8; 3x3 stride 2 in 32- or 64-channel chunks,
+    64 or 128 output channels per block), where the statistics are also
+    held within 1e-2 as the instance norm reads them, and y and the
+    statistics within 4e-3 of a float64 conv of the same bfloat16 values
+    (one bf16 rounding of y is 1.7e-3 in relative L2; the plain version,
+    cuDNN's bf16 conv, is itself 2.3e-3 and its statistics up to 8e-3 from
+    that float64 conv, which is why the affine's bias is small here: a
+    channel whose variance is a small difference of large sums magnifies
+    the reference's error past 1e-2). Float32 and the narrow 20 -> 40 conv
+    take the CUDA-core route."""
     rng = np.random.default_rng(3)
-    x = _t(rng.standard_normal((52, 68, cin)), cuda)
+    x = _t(rng.standard_normal((h, w, cin)), cuda, dtype)
     wt = _t(rng.standard_normal((cout, cin, k, k)) / np.sqrt(k * k * cin), cuda)
     b = _t(rng.standard_normal(cout) * 0.1, cuda)
-    eff = _t(np.stack([rng.random(cin) + 0.5, rng.standard_normal(cin)]), cuda)
-    got = front_kernel.same_conv(x, wt, b, stride, pad, eff=eff, relu=True)
-    want = front_kernel.same_conv_plain(x, wt, b, stride, pad, eff=eff, relu=True)
+    kw = dict(eff=_t(np.stack([rng.random(cin) + 0.5, rng.standard_normal(cin) * 0.1]), cuda)
+              if prologue else None, relu=prologue)
+    tc = dtype == torch.bfloat16 and cin != 20
+    entry = "fav_front_tc" if tc else "fav_conv_in"
+    kern = front_kernel.KERNEL
+    before = (kern.launches, kern.routes.get(entry, 0))
+    got = front_kernel.same_conv(x, wt, b, stride, pad, **kw)
+    assert (kern.launches, kern.routes.get(entry, 0)) == (before[0] + 1, before[1] + 1)
+    want = front_kernel.same_conv_plain(x, wt, b, stride, pad, **kw)
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    assert got[0].dtype == dtype and got[0].shape == (ho, wo, cout)
     for g, ref in zip(got, want):
-        assert ((g - ref).norm() / ref.norm()).item() <= 1e-4
+        g, ref = g.float(), ref.float()
+        assert ((g - ref).norm() / ref.norm()).item() <= tol
+    if tc:
+        assert _stats_err(got[1], want[1], ho * wo) <= 1e-2
+        a = _conv_in._prologue(x, kw["eff"], prologue, None).double()   # bf16 values
+        ref = torch.nn.functional.conv2d(a.permute(2, 0, 1)[None], wt.to(dtype).double(),
+                                         b.to(dtype).double(), stride, pad)[0].permute(1, 2, 0)
+        y = got[0].double()
+        assert ((y - ref).norm() / ref.norm()).item() <= 4e-3
+        st = torch.stack([ref.sum(dim=(0, 1)), (ref * ref).sum(dim=(0, 1))])
+        assert _stats_err(got[1].double(), st, ho * wo) <= 4e-3
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
@@ -204,9 +242,9 @@ def test_route_counters_rise_once_per_launch(cuda):
 
 
 def test_stylizer_bf16_batch1_takes_the_tensor_cores(cuda):
-    """The batch-1 stylizer in bfloat16: K3 three launches on the CUDA-core
-    route, K2 ten on the tensor-core route and none elsewhere, within
-    mean-abs/255 1e-2 of the cuDNN path."""
+    """The batch-1 stylizer in bfloat16: K3 three launches on the front's
+    tensor-core route, K2 ten on the 3x3 tensor-core route and none
+    elsewhere, within mean-abs/255 1e-2 of the cuDNN path."""
     spec, params, _ = checkpoint.load_model("demo", cuda)
     x = _t(np.random.default_rng(12).standard_normal((1, 96, 128, 7)) * 60, cuda,
            torch.bfloat16)
@@ -214,7 +252,7 @@ def test_stylizer_bf16_batch1_takes_the_tensor_cores(cuda):
     for k in kernels:
         k.reset()
     got = stylizer.apply(params, spec, x, dtype=torch.bfloat16)
-    assert [dict(k.routes) for k in kernels] == [{"fav_conv_in": 3}, {"fav_conv_tc": 10}, {}]
+    assert [dict(k.routes) for k in kernels] == [{"fav_front_tc": 3}, {"fav_conv_tc": 10}, {}]
     want = stylizer.apply(params, spec, x, dtype=torch.bfloat16, fused=False)
     assert (got.float() - want.float()).abs().mean().item() / 255.0 <= 1e-2
 
@@ -291,6 +329,11 @@ def test_kernels_launch_on_the_tensors_card(cuda):
     xb = _t(rng.standard_normal((20, 24, 128)), dev, torch.bfloat16)
     wb = _t(rng.standard_normal((128, 128, 3, 3)) / 34, dev)
     bb = _t(rng.standard_normal(128) * 0.1, dev)
+    # bfloat16 3x3 stride 2, 32 -> 64: the front's tensor-core kernel
+    xf = _t(rng.standard_normal((21, 27, 32)), dev, torch.bfloat16)
+    wf = _t(rng.standard_normal((64, 32, 3, 3)) / 17, dev)
+    bf = _t(rng.standard_normal(64) * 0.1, dev)
+    ef = _t(np.stack([rng.random(32) + 0.5, rng.standard_normal(32)]), dev)
 
     face = _t(rng.random((40, 40, 3)), dev)
     strip = strip_warp_kernel.make_static_strip_warp(_vr_maps(40, 12)[2])
@@ -316,6 +359,11 @@ def test_kernels_launch_on_the_tensors_card(cuda):
         assert rel(conv_kernel.conv3x3(xb[None], wb, bb),
                    conv_kernel.conv3x3_plain(xb[None], wb, bb)) <= 1e-2
         assert [k.routes.get("fav_conv_tc", 0) for k in kernels] == [n + 1 for n in before]
+        before = front_kernel.KERNEL.routes.get("fav_front_tc", 0)
+        for g, ref in zip(front_kernel.same_conv(xf, wf, bf, 2, 1, eff=ef, relu=True),
+                          front_kernel.same_conv_plain(xf, wf, bf, 2, 1, eff=ef, relu=True)):
+            assert rel(g, ref) <= 1e-2
+        assert front_kernel.KERNEL.routes.get("fav_front_tc", 0) == before + 1
 
     assert torch.cuda.current_device() == 0
     check()
