@@ -36,6 +36,17 @@
 //     64-wide K slice, so the products of slice j start while slices j + 1
 //     ... are still in flight; A alternates between two register sets, so
 //     the ldmatrix of one slice overlaps the wgmmas of the one before;
+//   * persistent blocks: as many as fit the card at once, each walking the
+//     tiles blockIdx.x, blockIdx.x + gridDim.x, ... With one input-channel
+//     chunk (every layer of the stylizer's front) the weights are loaded
+//     once per block, not once per tile (layer 0's 48 KB, once per tile,
+//     would be 438 MB of L2 traffic at 1080p); with more chunks they are
+//     reloaded per chunk. The halo's region also stages the epilogue's tile,
+//     and each thread's statistics run over all of its block's tiles. The
+//     9x9 layer (65 KB of shared memory) is held to 128 registers so that
+//     two blocks share an SM (ptxas spills 88 bytes for it; it still ran
+//     15% faster than at one block, PERF.md); layers 1 and 2 run one (their
+//     160-190 registers, and layer 2's 215 KB);
 //   * layer 0 (Cin 7): each input pixel is kept as 8 channels (16 B, the
 //     eighth zero). Its 14-byte pixels are not 16-byte aligned, so the halo
 //     is read with 2-byte loads (no padded copy of the input on the host).
@@ -96,12 +107,17 @@ struct Cfg {
   static constexpr int kE = STRIDE == 2 ? (kHC + 1) / 2 : kHC;  // even columns first
   static constexpr int kWBytes = N * 128;               // one K slice [N][64]
   static constexpr int kHaloBytes = kHR * kHC * CP * 2;
-  static constexpr int kSmem = kS * kWBytes + kHaloBytes + 1024;  // + alignment
+  static constexpr int kOutBytes = kM * N * 2;          // the epilogue's staged tile
+  // the halo's region also stages the epilogue (the weights stay resident)
+  static constexpr int kRegion = kHaloBytes > kOutBytes ? kHaloBytes : kOutBytes;
+  static constexpr int kSmem = kS * kWBytes + kRegion + 1024;  // + alignment
+  // two blocks per SM where the shared memory allows (the 9x9 layer): the
+  // registers are then held to 128 a thread
+  static constexpr int kMinBlocks = kSmem <= 100 * 1024 ? 2 : 1;
 
   static_assert(kGP == 1 || kGP == 4 || kGP == 8, "8, 32 or 64 channels per chunk");
   static_assert(STRIDE == 1 || STRIDE == 2, "stride 1 or 2");
   static_assert(kGP > 1 || STRIDE == 1, "8-channel pixels only at stride 1");
-  static_assert(kS * kWBytes >= kM * N * 2, "the epilogue stages the tile in the weights");
 
   // halo slot of halo column c (stride 2: the even columns, then the odd)
   static __device__ __forceinline__ int col_slot(int c) {
@@ -149,7 +165,8 @@ __device__ __forceinline__ void wgmma_n(float* d, const uint32_t (&a)[4], uint64
 }
 
 template <int KH, int KW, int STRIDE, int CP, int N, int MT>
-__global__ void __launch_bounds__(kThreads, 1) front_tc_kernel(FrontArgs p) {
+__global__ void __launch_bounds__(kThreads, (Cfg<KH, KW, STRIDE, CP, N, MT>::kMinBlocks))
+front_tc_kernel(FrontArgs p) {
   using C = Cfg<KH, KW, STRIDE, CP, N, MT>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ float s_stat[2][N];
@@ -162,8 +179,9 @@ __global__ void __launch_bounds__(kThreads, 1) front_tc_kernel(FrontArgs p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wi = warp & 3;
   const int co0 = blockIdx.z * N;
-  const int oy0 = blockIdx.y * C::kTH, ox0 = blockIdx.x * C::kTW;
-  const int iy0 = oy0 * STRIDE - p.pad, ix0 = ox0 * STRIDE - p.pad;
+  const int tiles_x = (p.wout + C::kTW - 1) / C::kTW;
+  const int ntiles = tiles_x * ((p.hout + C::kTH - 1) / C::kTH);
+  int oy0 = 0, ox0 = 0, iy0 = 0, ix0 = 0;               // the current tile
   const bool prologue = p.eff != nullptr || p.relu;
   const uint32_t hbase = smem_u32(s_halo);
 
@@ -172,6 +190,9 @@ __global__ void __launch_bounds__(kThreads, 1) front_tc_kernel(FrontArgs p) {
 
   const int nchunk = (p.cin + CP - 1) / CP;
   const int steps = nchunk * C::kS;                     // (chunk, slice), slices inner
+  // with one chunk the weights are loaded once and serve every tile
+  const bool resident = nchunk == 1;
+  int pending = 0;                                      // cp.async groups in flight
 
   // the prologue of 8 channels from ci0 (channels past cin stay zero)
   auto prologue8 = [&](float (&v)[8], int ci0) {
@@ -257,14 +278,20 @@ __global__ void __launch_bounds__(kThreads, 1) front_tc_kernel(FrontArgs p) {
       *sp = raw;
     }
   };
-  // chunk c's loads: cp.async group j holds K slice j, group 0 also the halo
-  auto issue_chunk = [&](int c) {
+  // chunk c's loads: cp.async group j holds K slice j, group 0 also the
+  // halo; without the weights, one group of the halo alone
+  auto issue_chunk = [&](int c, bool weights) {
     if constexpr (STRIDE == 2) load_halo(c);
+    if (weights) {
 #pragma unroll 1
-    for (int j = 0; j < C::kS; ++j) {
-      load_w(c * C::kS + j);
+      for (int j = 0; j < C::kS; ++j) {
+        load_w(c * C::kS + j);
+        cp_async_commit();
+      }
+    } else {
       cp_async_commit();
     }
+    pending = weights ? C::kS : 1;
     if constexpr (STRIDE == 1) load_halo_narrow();     // seen after the next barrier
   };
   // shared-memory address of the ldmatrix row this lane supplies for m64
@@ -284,13 +311,6 @@ __global__ void __launch_bounds__(kThreads, 1) front_tc_kernel(FrontArgs p) {
   };
 
   float acc[MT][N / 2];
-#pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[t][i] = 0.f;
-
-  issue_chunk(0);
-
   // One K slice: A of its k16 steps into `acur`; `aprev` holds the previous
   // slice's A, read by its wgmmas until the wait at the end of this step.
   auto step = [&](int s, uint32_t (&acur)[4][MT][4], uint32_t (&aprev)[4][MT][4]) {
@@ -299,9 +319,9 @@ __global__ void __launch_bounds__(kThreads, 1) front_tc_kernel(FrontArgs p) {
       wgmma_wait<0>();
       fence_regs(&aprev[0][0][0], 16 * MT);
       __syncthreads();
-      issue_chunk(c);
+      issue_chunk(c, true);
     }
-    cp_async_wait_pending(C::kS - 1 - j);
+    cp_async_wait_pending(pending - 1 - j > 0 ? pending - 1 - j : 0);
     // the slices written through cp.async are read by wgmma (async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
@@ -335,61 +355,79 @@ __global__ void __launch_bounds__(kThreads, 1) front_tc_kernel(FrontArgs p) {
   uint32_t a0[4][MT][4], a1[4][MT][4];
 #pragma unroll
   for (int i = 0; i < 16 * MT; ++i) (&a0[0][0][0])[i] = (&a1[0][0][0])[i] = 0u;
-  for (int s = 0; s < steps; s += 2) {
-    step(s, a0, a1);
-    if (s + 1 < steps) step(s + 1, a1, a0);
-  }
-  wgmma_wait<0>();
-  fence_regs(&a0[0][0][0], 16 * MT);
-  fence_regs(&a1[0][0][0], 16 * MT);
-  fence_regs(&acc[0][0], MT * N / 2);
-
-  // epilogue: bias, bf16 into the (free) weight area as [kM px][N] with the
-  // 16-byte group XORed by the pixel, then 16-byte stores and statistics
   constexpr int G = N / 8;                     // 16-byte groups per output pixel
   constexpr int XM = G < 8 ? G - 1 : 7;
-  __syncthreads();
-  uint8_t* s_out = s_w;
-#pragma unroll
-  for (int t = 0; t < MT; ++t) {
-    const int mrow = (wg * MT + t) * 64 + 16 * wi + (lane >> 2);
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = mrow + 8 * h;
-        const int n = 8 * j + 2 * (lane & 3);
-        const float v0 = acc[t][4 * j + 2 * h] + s_bias[n];
-        const float v1 = acc[t][4 * j + 2 * h + 1] + s_bias[n + 1];
-        *reinterpret_cast<__nv_bfloat162*>(
-            s_out + m * (N * 2) + ((j ^ (m & XM)) << 4) + 4 * (lane & 3)) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
-  __syncthreads();
   constexpr int kRows = kThreads / G;          // output pixels per pass
-  const int g = tid % G;                       // this thread's 8 channels
-  float ssum[8], ssq[8];
+  const int g = tid % G;                       // this thread's 8 output channels
+  float ssum[8], ssq[8];                       // their statistics, over every tile
 #pragma unroll
   for (int k = 0; k < 8; ++k) ssum[k] = ssq[k] = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < C::kM / kRows; ++i) {
-    const int m = tid / G + kRows * i;
-    const int oy = oy0 + m / C::kTW, ox = ox0 + m % C::kTW;
-    if (oy >= p.hout || ox >= p.wout) continue;
-    const uint4 val = *reinterpret_cast<const uint4*>(s_out + m * (N * 2) + ((g ^ (m & XM)) << 4));
-    *reinterpret_cast<uint4*>(p.y + ((int64_t)oy * p.wout + ox) * p.cout + co0 + g * 8) = val;
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&val);
+  uint8_t* s_out = s_halo;                     // the staged tile, [kM px][N] bf16
+
+  // persistent blocks: tile blockIdx.x, then every gridDim.x-th one
+  bool first = true;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    oy0 = (tile / tiles_x) * C::kTH;
+    ox0 = (tile % tiles_x) * C::kTW;
+    iy0 = oy0 * STRIDE - p.pad;
+    ix0 = ox0 * STRIDE - p.pad;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h2[k]);
-      ssum[2 * k] += f.x;
-      ssq[2 * k] += f.x * f.x;
-      ssum[2 * k + 1] += f.y;
-      ssq[2 * k + 1] += f.y * f.y;
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[t][i] = 0.f;
+    issue_chunk(0, first || !resident);
+    first = false;
+    for (int s = 0; s < steps; s += 2) {
+      step(s, a0, a1);
+      if (s + 1 < steps) step(s + 1, a1, a0);
     }
+    wgmma_wait<0>();
+    fence_regs(&a0[0][0][0], 16 * MT);
+    fence_regs(&a1[0][0][0], 16 * MT);
+    fence_regs(&acc[0][0], MT * N / 2);
+
+    // epilogue: bias, bf16 into the (read) halo region as [kM px][N] with
+    // the 16-byte group XORed by the pixel, then 16-byte stores
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      const int mrow = (wg * MT + t) * 64 + 16 * wi + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = mrow + 8 * h;
+          const int n = 8 * j + 2 * (lane & 3);
+          const float v0 = acc[t][4 * j + 2 * h] + s_bias[n];
+          const float v1 = acc[t][4 * j + 2 * h + 1] + s_bias[n + 1];
+          *reinterpret_cast<__nv_bfloat162*>(
+              s_out + m * (N * 2) + ((j ^ (m & XM)) << 4) + 4 * (lane & 3)) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < C::kM / kRows; ++i) {
+      const int m = tid / G + kRows * i;
+      const int oy = oy0 + m / C::kTW, ox = ox0 + m % C::kTW;
+      if (oy >= p.hout || ox >= p.wout) continue;
+      const uint4 val =
+          *reinterpret_cast<const uint4*>(s_out + m * (N * 2) + ((g ^ (m & XM)) << 4));
+      *reinterpret_cast<uint4*>(p.y + ((int64_t)oy * p.wout + ox) * p.cout + co0 + g * 8) = val;
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&val);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(h2[k]);
+        ssum[2 * k] += f.x;
+        ssq[2 * k] += f.x * f.x;
+        ssum[2 * k + 1] += f.y;
+        ssq[2 * k + 1] += f.y * f.y;
+      }
+    }
+    __syncthreads();     // the staged tile is read: the next halo may land there
   }
+
   // lanes lane, lane ^ G, lane ^ 2G, ... hold the same channels
 #pragma unroll
   for (int off = G; off < 32; off <<= 1) {
@@ -411,28 +449,45 @@ __global__ void __launch_bounds__(kThreads, 1) front_tc_kernel(FrontArgs p) {
     atomicAdd(&p.stats[(i / N) * p.cout + co0 + i % N], s_stat[i / N][i % N]);
 }
 
-// Lift the instantiation's dynamic shared-memory limit, once per device.
+// Blocks of the instantiation that fit the device at once (SMs x blocks per
+// SM), after lifting its dynamic shared-memory limit; once per device.
 template <int KH, int KW, int STRIDE, int CP, int N, int MT>
-cudaError_t allow_smem() {
-  static std::atomic<bool> done[kMaxDevices];
+cudaError_t resident_blocks(int* out) {
+  static std::atomic<int> cache[kMaxDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev].load()) return cudaSuccess;
-  e = cudaFuncSetAttribute(front_tc_kernel<KH, KW, STRIDE, CP, N, MT>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           Cfg<KH, KW, STRIDE, CP, N, MT>::kSmem);
-  if (e == cudaSuccess) done[dev].store(true);
-  return e;
+  int n = cache[dev].load();
+  if (n == 0) {
+    auto kern = front_tc_kernel<KH, KW, STRIDE, CP, N, MT>;
+    const int smem = Cfg<KH, KW, STRIDE, CP, N, MT>::kSmem;
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    n = sms * per_sm;
+    cache[dev].store(n);
+  }
+  *out = n;
+  return cudaSuccess;
 }
 
 template <int KH, int KW, int STRIDE, int CP, int N, int MT>
 int launch(const FrontArgs& p, cudaStream_t stream) {
   using C = Cfg<KH, KW, STRIDE, CP, N, MT>;
-  cudaError_t e = allow_smem<KH, KW, STRIDE, CP, N, MT>();
+  int blocks = 0;
+  cudaError_t e = resident_blocks<KH, KW, STRIDE, CP, N, MT>(&blocks);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((p.wout + C::kTW - 1) / C::kTW, (p.hout + C::kTH - 1) / C::kTH, p.cout / N);
+  const int zblocks = p.cout / N;
+  const long long ntiles = (long long)((p.wout + C::kTW - 1) / C::kTW)
+                           * ((p.hout + C::kTH - 1) / C::kTH);
+  const long long per_z = blocks / zblocks > 1 ? blocks / zblocks : 1;
+  dim3 grid((unsigned)(ntiles < per_z ? ntiles : per_z), 1, zblocks);
   front_tc_kernel<KH, KW, STRIDE, CP, N, MT><<<grid, kThreads, C::kSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
