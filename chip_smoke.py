@@ -194,14 +194,19 @@ def _check_routes(kernels, launches, dtype, where):
 
 def _profile_ms(torch, fn, name, n=20):
     """The kernel's own device time per call (ms): torch.profiler over n
-    calls, summed over the kernels whose name contains `name`."""
+    calls, summed over the kernels whose name contains `name`. Each call
+    launches one such kernel; where the profiler kept fewer or more records
+    than calls, the mean is taken over the records it kept, and said."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return _device_ms(torch, prof, name) / n
+    ms, count = _device_events(prof, name)
+    if count != n:
+        log(f"profiler: {count} records of {name} for {n} calls")
+    return ms / count if count else 0.0
 
 
 def sass_mma_counts(lib_path):
@@ -569,7 +574,7 @@ def run_main_path(torch, workdir):
         results, secs = _drive(torch, _options(pattern, prefix, dtype, n), write=False)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             _drive(torch, _options(pattern, prefix, dtype, n), write=False)
-        busy = _device_ms(torch, prof) / 1000.0 / secs
+        busy = _device_events(prof)[0] / 1000.0 / secs
         log(f"main path {dtype} without PNG encoding: {len(results) / secs:.3f} fps; device "
             f"kernel time / wall time {busy:.3f} (torch.profiler kernel time over the wall "
             f"time of the unprofiled run)")
@@ -676,10 +681,10 @@ def _vr_drive(torch, opt, record=None, write=True):
     return n, s.elapsed_time(e) / 1000.0
 
 
-def _device_ms(torch, prof, name=""):
-    """Summed device time (ms) of the kernels a torch.profiler run recorded,
-    of those whose name contains `name`."""
-    total = 0.0
+def _device_events(prof, name=""):
+    """(summed device time in ms, number of launches) of the kernels a
+    torch.profiler run recorded whose name contains `name`."""
+    total, count = 0.0, 0
     for ev in prof.key_averages():
         if name not in ev.key:
             continue
@@ -687,7 +692,8 @@ def _device_ms(torch, prof, name=""):
         if t is None:
             t = getattr(ev, "self_cuda_time_total", 0.0)
         total += t
-    return total / 1000.0
+        count += ev.count
+    return total / 1000.0, count
 
 
 def run_vr_path(torch, workdir):
@@ -739,7 +745,7 @@ def run_vr_path(torch, workdir):
         fps[dtype + "_no_png"] = n / secs
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             _vr_drive(torch, _vr_options(pattern, prefix, dtype, n), write=False)
-        busy = _device_ms(torch, prof) / 1000.0 / secs
+        busy = _device_events(prof)[0] / 1000.0 / secs
         log(f"VR path {dtype} without PNG encoding: {n / secs:.3f} fps; device kernel "
             f"time / wall time {busy:.3f} (torch.profiler kernel time over the wall time "
             f"of the unprofiled run)")

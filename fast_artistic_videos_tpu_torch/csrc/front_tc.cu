@@ -45,8 +45,8 @@
 //     and each thread's statistics run over all of its block's tiles. The
 //     9x9 layer (65 KB of shared memory) is held to 128 registers so that
 //     two blocks share an SM (ptxas spills 88 bytes for it; it still ran
-//     15% faster than at one block, PERF.md); layers 1 and 2 run one (their
-//     160-190 registers, and layer 2's 215 KB);
+//     in 0.40 ms of device time against 0.59 at one block per SM, PERF.md);
+//     layers 1 and 2 run one (their 160-190 registers, and layer 2's 215 KB);
 //   * layer 0 (Cin 7): each input pixel is kept as 8 channels (16 B, the
 //     eighth zero). Its 14-byte pixels are not 16-byte aligned, so the halo
 //     is read with 2-byte loads (no padded copy of the input on the host).
