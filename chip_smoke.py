@@ -15,17 +15,19 @@ Phases (any failure exits non-zero, before the result line is printed):
      median of 20; the kernel's own device time: torch.profiler), with the
      least time the card could take (bound_ms). K2 and K4 in bfloat16 take
      the tensor-core route of conv_tc.cu, K3's three layers in bfloat16
-     that of front_tc.cu (each no slower than conv2d on events), float32
-     the CUDA-core one (conv_in.cu); each case checks that its launch took
-     the route that ops/_conv_in.py's rule names;
+     that of front_tc.cu (each no slower than conv2d on events); K2 and K4
+     in float32 take the register-tiled CUDA-core kernel conv3x3_f32.cu,
+     K3 in float32 the general template conv_in.cu; each case checks that
+     its launch took the entry that ops/_conv_in.py's conv_route names;
   4. the 2D main path: the streaming stylizer (bundled demo model, bundled
      flow estimator, flow at half resolution) on 12 seeded 1080p pan
      frames, float32 then bfloat16, through the CLI's build functions and
      VideoDriver.run; the launch counters must rise by the expected amount
-     per frame, every K2 and K3 launch of the bfloat16 run and none of the
-     float32 run must take a tensor-core route, and every output must be
-     finite; fps with and without PNG encoding, and the device's busy share
-     without it (torch.profiler);
+     per frame, every launch must take the C entry that conv_route names
+     for its dtype (bfloat16: K2 and K3 on the tensor cores; float32: K2 on
+     conv3x3_f32.cu, K3 on conv_in.cu), and every output must be finite;
+     fps with and without PNG encoding, and the device's busy share without
+     it (torch.profiler);
   5. the port on the card against the JAX package's committed 2D CLI output
      (tests/fixtures/torch_parity_demo.npz), mean-abs <= 1e-2 per frame;
   6. the VR main path: the spherical stylizer on 6 frames of six seeded
@@ -40,13 +42,14 @@ Phases (any failure exits non-zero, before the result line is printed):
      face;
   8. the batched path: --create_inconsistent --inconsistent_batch 4 on 8 of
      the 1080p pan frames, float32 then bfloat16, with exact launch counts
-     (K4 20, the other kernels 0; K4 on the tensor cores in bfloat16 only),
+     (K4 20, the other kernels 0; K4 on the tensor cores in bfloat16, on
+     conv3x3_f32.cu in float32),
      finite outputs, fps with and without PNG encoding, and the batched
      frames against the same frames stylized one at a time through K3 and
      K2 (mean-abs <= 1e-2);
   9. feature reuse (--feature_reuse 3) on the 12 pan frames, float32, with
-     exact K1/K2/K3 counts (no tensor-core launch), frames 1-2 within one
-     uint8 step of phase 4's exact run and the reuse frames within
+     exact K1/K2/K3 counts and entries (no tensor-core launch), frames 1-2
+     within one uint8 step of phase 4's exact run and the reuse frames within
      mean-abs 0.05 of it (the JAX package's bound on how far the reuse
      approximation drifts from the exact run, not a correctness check:
      phase 10 holds the reuse mode against the JAX CLI), fps with and
@@ -57,13 +60,13 @@ Phases (any failure exits non-zero, before the result line is printed):
 
 The last lines of standard output are the card's name and power limit, a
 JSON line with one row per kernel (name, route, source, the TPU kernel it
-replaces, launches in its main path's float32 run, max abs error, kernel,
-device, plain, bound and library-call milliseconds, and under "bfloat16"
-the same figures of its bfloat16 form: route, source, C entry, launches in
-the bfloat16 run and how many of them took the tensor cores; K3's row also
-lists its three layers under "layers", each with its shape and both
-dtypes' C entry and figures) and {"ok": true, "device": {...}}. float32
-runs with TF32 off.
+replaces, its float32 C entry, launches in its main path's float32 run, max
+abs error, kernel, device, plain, bound and library-call milliseconds, and
+under "bfloat16" the same figures of its bfloat16 form: route, source, C
+entry, launches in the bfloat16 run and how many of them took the tensor
+cores; K3's row also lists its three layers under "layers", each with its
+shape and both dtypes' C entry and figures) and {"ok": true, "device":
+{...}}. float32 runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -94,7 +97,13 @@ TC_KERNELS = ("res_chain_conv", "conv3x3", "front_conv")
 TC_SOURCES = {"fav_conv_tc": "fast_artistic_videos_tpu_torch/csrc/conv_tc.cu",
               "fav_front_tc": "fast_artistic_videos_tpu_torch/csrc/front_tc.cu"}
 SYMBOLS = {"fav_conv_tc": "conv_tc_kernel", "fav_front_tc": "front_tc_kernel",
-           "fav_conv_in": "conv_in_kernel", "fav_conv3x3": "conv_in_kernel"}
+           "fav_conv_in": "conv_in_kernel", "fav_conv3x3_f32": "conv3x3_f32_kernel"}
+# the C entry of each kernel by dtype on the stylizer's shapes (K3 and K2 at
+# batch 1, K4 at batch > 1), as ops/_conv_in.py's conv_route names them
+ENTRIES = {"bfloat16": {"res_chain_conv": "fav_conv_tc", "conv3x3": "fav_conv_tc",
+                        "front_conv": "fav_front_tc"},
+           "float32": {"res_chain_conv": "fav_conv3x3_f32", "conv3x3": "fav_conv3x3_f32",
+                       "front_conv": "fav_conv_in"}}
 
 
 def log(*a):
@@ -177,36 +186,43 @@ def _reset(kernels):
 
 
 def _check_routes(kernels, launches, dtype, where):
-    """Every K2/K3/K4 launch of a bfloat16 run took a tensor-core route and
-    none of a float32 run did (the rule of ops/_conv_in.py at the stylizer's
-    shapes)."""
+    """Every K2/K3/K4 launch of the run took the C entry that
+    ops/_conv_in.py's rule names at the stylizer's shapes for `dtype`
+    (ENTRIES): in bfloat16 the tensor cores, in float32 K2 and K4 the
+    register-tiled conv3x3_f32.cu and K3 the general template. Returns the
+    tensor-core launches per kernel."""
     from fast_artistic_videos_tpu_torch.ops import _conv_in
 
-    tc = {name: sum(k.routes.get(e, 0) for e in _conv_in.TC_ENTRIES)
-          for name, k in kernels.items()}
-    want = {name: (launches[name] if dtype == "bfloat16" and name in TC_KERNELS else 0)
-            for name in kernels}
-    log(f"{where} {dtype}: tensor-core launches {tc}, expected {want}")
-    if tc != want:
-        raise AssertionError(f"{where} {dtype}: tensor-core launches {tc} != {want}")
-    return tc
+    got = {name: dict(k.routes) for name, k in kernels.items() if name in TC_KERNELS}
+    want = {name: ({ENTRIES[dtype][name]: launches[name]} if launches[name] else {})
+            for name in got}
+    log(f"{where} {dtype}: launches by C entry {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"{where} {dtype}: launches by C entry {got} != {want}")
+    return {name: sum(k.routes.get(e, 0) for e in _conv_in.TC_ENTRIES)
+            for name, k in kernels.items()}
 
 
-def _profile_ms(torch, fn, name, n=20):
+def _profile_ms(torch, fn, name, n=20, tries=3):
     """The kernel's own device time per call (ms): torch.profiler over n
     calls, summed over the kernels whose name contains `name`. Each call
     launches one such kernel; where the profiler kept fewer or more records
-    than calls, the mean is taken over the records it kept, and said."""
+    than calls, the mean is taken over the records it kept, and said. A
+    profile that kept no record of the kernel is taken again, up to `tries`
+    times in all, and then raises: a device time is never made up."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    ms, count = _device_events(prof, name)
-    if count != n:
-        log(f"profiler: {count} records of {name} for {n} calls")
-    return ms / count if count else 0.0
+    for attempt in range(1, tries + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ms, count = _device_events(prof, name)
+        if count != n:
+            log(f"profiler: {count} records of {name} for {n} calls (attempt {attempt})")
+        if count:
+            return ms / count
+    raise RuntimeError(f"profiler kept no record of {name} in {tries} profiles")
 
 
 def sass_mma_counts(lib_path):
@@ -266,7 +282,7 @@ def check_kernels(torch):
             ys = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1)
             xs = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w)
             grid = torch.stack([(xs + flow[..., 0]) * 2 / (w - 1) - 1,
-                                (ys + flow[..., 1]) * 2 / (h - 1) - 1], -1)
+                                (ys + flow[..., 1]) * 2 / (h - 1) - 1], -1).to(dtype)
             src = img.permute(0, 3, 1, 2)
             lib_ms = _time_ms(torch, lambda: torch.nn.functional.grid_sample(
                 src, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
@@ -283,7 +299,7 @@ def check_kernels(torch):
     f32, bf16 = torch.float32, torch.bfloat16
     warp_case((1, 1080, 1920, 3), 16, f32, 1e-5, library=True)   # engine prior warp
     warp_case((1, 1080, 1920, 3), 32, f32, 1e-5)
-    warp_case((1, 1080, 1920, 3), 16, bf16, 2 ** -7)
+    warp_case((1, 1080, 1920, 3), 16, bf16, 2 ** -7, library=True)
     warp_case((1, 540, 960, 2), 32, f32, 1e-5)         # consistency sample
     warp_case((1, 540, 960, 2), 16, f32, 1e-5)
     for shape in ((1, 272, 480, 16), (1, 136, 240, 32), (1, 68, 120, 64), (1, 34, 60, 96)):
@@ -303,7 +319,7 @@ def check_kernels(torch):
                              torch.randn(cin, generator=g) * 0.1]).to(dev)
         s = torch.randn(h + 4, w + 4, cin, generator=g).to(dev, dtype) if skip else None
         kw = dict(stride=stride, pad=pad, eff=e, relu=relu, skip=s, emit_input=emit)
-        entry = _conv_in.tensor_core_route(dtype, k, k, stride, pad, cin, cout) or "fav_conv_in"
+        entry = _conv_in.conv_route(dtype, k, k, stride, pad, cin, cout)
         before = kernel.routes.get(entry, 0)
         got = _conv_in.conv_in(kernel, x, wt, b, **kw)
         want = _conv_in.conv_in_plain(x, wt, b, **kw)
@@ -388,7 +404,7 @@ def check_block_conv(torch, g):
         b = (torch.randn(cout, generator=g) * 0.1).cuda()
         pad = 1 if same else 0
         fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
-        entry = _conv_in.tensor_core_route(dtype, 3, 3, 1, pad, cin, cout) or "fav_conv3x3"
+        entry = _conv_in.conv_route(dtype, 3, 3, 1, pad, cin, cout)
         before = conv_kernel.KERNEL.routes.get(entry, 0)
         got = fn(x, wt, b, relu)
         want = conv_kernel.conv3x3_plain(x, wt, b, relu, pad)
@@ -1096,7 +1112,7 @@ def main() -> int:
         bf = next(c for c in cases if c["dtype"] == torch.bfloat16)
         n_bf = launches["bfloat16"][k.name]
         row = {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-               "launches": launches["float32"][k.name],
+               "entry": first["entry"], "launches": launches["float32"][k.name],
                "max_abs_err": max(c["err"] for c in cases if c["dtype"] == torch.float32),
                **figures(first),
                "bfloat16": {"route": "cuda", "source": TC_SOURCES.get(bf["entry"], k.source),

@@ -16,8 +16,8 @@ CLI's validation and runs the plain path: the 16-phase quarter-resolution
 layout is a TPU layout, and the JAX package holds the two modes to within
 one uint8 step of each other.
 
-float32 runs with TF32 off for cuDNN and matmuls, so the port's float32
-numbers are float32.
+The port's float32 convs run with TF32 off whatever the caller's cuDNN
+flag says (``core.device.float32_convs``), so float32 numbers are float32.
 """
 
 from __future__ import annotations
@@ -53,10 +53,6 @@ def resolve_device(name: str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: no CUDA device is available "
                            "(pass --device cpu to run the plain versions)")
-    if dev.type == "cuda":
-        # float32 means float32: cuDNN convs default to TF32 otherwise
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     return dev
 
 
@@ -85,12 +81,20 @@ def build_engine(opt: StylizeOptions, device) -> StylizerEngine:
                           apply_vid_split=split, reuse_plan=plan)
 
 
+def flow_stage_device(flow_device: int, device: torch.device) -> torch.device:
+    """The flow stage's device: card `flow_device` when ``0 <= flow_device <
+    torch.cuda.device_count()`` and the run is on the cards, else `device`
+    (the JAX CLI's rule for ``--flow_device``)."""
+    if device.type == "cuda" and 0 <= flow_device < torch.cuda.device_count():
+        return torch.device("cuda", flow_device)
+    return device
+
+
 def build_flow_provider(opt: StylizeOptions, device):
     from ..flow import estimator as flow_estimator
     from ..flow.provider import StreamingFlowProvider
 
-    if opt.flow_device >= 0 and device.type == "cuda":
-        device = torch.device("cuda", opt.flow_device)
+    device = flow_stage_device(opt.flow_device, device)
     # flow_scale < 1: the provider erodes the certainty at flow resolution
     # (exact), and the engine skips its full-resolution min-filter — but not
     # when the certainty is resized (scale_factor) or reaches the reuse steps,

@@ -13,7 +13,7 @@ frame placeholders plus a trailing %d for the face. Zero-download example
       --input_pattern faces/f%04d_%d.ppm --model_vid demo \\
       --flow_model bundled --flow_scale 0.5 --output_prefix out/o
 
-float32 runs with TF32 off for cuDNN and matmuls.
+The port's float32 convs run with TF32 off (``core.device.float32_convs``).
 """
 
 from __future__ import annotations

@@ -5,9 +5,15 @@ the streaming flow providers, ``load_model``, ``params_from_numpy``,
 ``flow.estimator.load_params``) runs on the card unless the caller asks for
 the CPU with ``device="cpu"``. Without a card the default raises: there is
 no silent fallback to the CPU.
+
+The port's cuDNN convolutions run inside :func:`float32_convs`, so a
+float32 conv is a float32 conv whatever ``torch.backends.cudnn.allow_tf32``
+says (PyTorch's default, True, runs them in TF32).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -22,3 +28,39 @@ def resolve(device=DEFAULT) -> torch.device:
         raise RuntimeError(f"device {device!s}: no CUDA device is available "
                            "(pass device=\"cpu\" to run the plain versions on the CPU)")
     return dev
+
+
+class _Float32Convs:
+    """Context manager: cuDNN convolutions inside it run with TF32 off. The
+    flag is process-wide and the flow provider's thread convolves while the
+    stylizer does, so entries are counted across threads: the first to
+    enter saves the caller's flag and turns TF32 off, the last to leave
+    puts the flag back."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = None
+
+    def __enter__(self):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+            self._depth += 1
+
+    def __exit__(self, *exc):
+        with self._lock:
+            self._depth -= 1
+            if self._depth == 0:
+                torch.backends.cudnn.allow_tf32 = self._saved
+        return False
+
+
+_FLOAT32_CONVS = _Float32Convs()
+
+
+def float32_convs():
+    """The scope around every cuDNN convolution of the port (the stylizer's
+    plain convs, the flow estimator's convs)."""
+    return _FLOAT32_CONVS

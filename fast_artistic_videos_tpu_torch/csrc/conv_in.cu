@@ -1,24 +1,20 @@
 // Direct convolution for Hopper (sm_90a), plain C interface.
 //
-// Replaces three Pallas kernels with one template:
-//   * fast_artistic_videos_tpu/ops/rblock_pallas.py `_kernel` (pallas_call
-//     in `_chain_conv`) — the residual chain's VALID 3x3 convs, two launches
-//     per R128 block (K2): (kh, kw, stride, pad) = (3, 3, 1, 0);
+// Replaces, with one template, the Pallas kernels of every conv shape that
+// no specialised kernel takes:
 //   * fast_artistic_videos_tpu/ops/front_pallas.py `_kernel` (pallas_call in
 //     `_same_conv`) — the stylizer front, layers 0-2 (K3): (9, 9, 1, 4) for
-//     7 -> 32, then (3, 3, 2, 1) for 32 -> 64 and 64 -> 128. The TPU runs
-//     these in a 16-phase space-to-depth layout to feed its 128-lane MXU;
-//     here they run directly on the logical NHWC grid;
-//   * fast_artistic_videos_tpu/ops/conv_pallas.py `_conv3x3_kernel`
-//     (pallas_call in `_conv3x3_padded`) — the block convs outside the fused
-//     chain (K4, entry `fav_conv3x3`, float32 only): (3, 3, 1, pad 0 or 1),
-//     no prologue, no statistics, an optional ReLU epilogue, the batch in
-//     the grid. The
-//     TPU version's 16-row DMA windows, row padding to a tile multiple and
-//     8-aligned widths are TPU layout and are not carried: the zero pad of
-//     the SAME form is read through the halo loads (no host pad copy).
+//     7 -> 32, then (3, 3, 2, 1) for 32 -> 64 and 64 -> 128, in float32 (the
+//     bfloat16 front runs in front_tc.cu). The TPU runs these in a 16-phase
+//     space-to-depth layout to feed its 128-lane MXU; here they run directly
+//     on the logical NHWC grid;
+//   * fast_artistic_videos_tpu/ops/rblock_pallas.py `_kernel` (pallas_call
+//     in `_chain_conv`) — the residual chain's VALID 3x3 convs (K2), (kh,
+//     kw, stride, pad) = (3, 3, 1, 0), at the widths that neither
+//     conv3x3_f32.cu (float32, Cin % 8, Cout % 128) nor conv_tc.cu
+//     (bfloat16, Cin % 64, Cout % 128) takes.
 //
-// y = [relu_out] ( conv(prologue(x), w) + b ), with
+// y = conv(prologue(x), w) + b, with
 //   prologue(x) = [+ skip[+2, +2]] ( [relu] ( eff[0] * x + eff[1] ) )
 // applied per input channel (each step optional; values rounded to the
 // storage dtype after the affine and after the skip add, as the Pallas
@@ -26,36 +22,25 @@
 // input reads 0, not eff(0) (front_pallas.py:84-93). With `a` non-null the
 // prologue result is also stored (the materialized residual-block input that
 // the next block uses as its skip).
-// Epilogue: bias, the optional ReLU, store in the storage dtype, and (with
-// `stats` non-null) per-output-channel [sum; sum of squares] of the STORED
-// (dtype-rounded) values, accumulated with atomics into an f32 (2, Cout)
-// buffer per image that the caller zeroes — the instance-norm statistics of
-// the next layer's prologue.
+// Epilogue: bias, store in the storage dtype, and (with `stats` non-null)
+// per-output-channel [sum; sum of squares] of the STORED (dtype-rounded)
+// values, accumulated with atomics into an f32 (2, Cout) buffer that the
+// caller zeroes — the instance-norm statistics of the next layer's prologue.
 //
-// Layout: NHWC activations, batch N (each image's tensors at a fixed
-// stride), HWIO weights (kh, kw, Cin, Cout), f32 or bf16 storage, f32
-// accumulation. K2 and K3 launch with N = 1 (the streaming path); K4 with
-// the whole batch in one launch (blockIdx.z = image * Cout blocks + block).
+// Layout: NHWC activations, one image, HWIO weights (kh, kw, Cin, Cout), f32
+// or bf16 storage, f32 accumulation. Which configurations run here is the
+// rule of ops/_conv_in.py `conv_route`.
 //
-// Which configurations run here: every float32 conv, and the bfloat16 K2/K3
-// convs that ops/_conv_in.py's `tensor_core_route` leaves here (chain
-// widths that are no multiple of 64 in / 128 out, front shapes other than
-// the stylizer's). Bfloat16 K2 at the stylizer's 128-channel widths and
-// every bfloat16 K4 conv run on the tensor cores in conv_tc.cu, the
-// bfloat16 front (K3: 9x9 at Cin <= 8, 3x3 stride 2 at Cin % 32 == 0 and
-// Cout % 64 == 0) in front_tc.cu.
-//
-// What bounds it on the H100: CUDA-core FMAs. At f32 the R128 chain is 42.3
-// GFLOP per conv at 1080p (290x500 -> 288x498), layer 0 84.2 GFLOP and a
-// batched K4 conv of four 1080p frames 169.2 GFLOP; no tensor cores are
-// used here, so the roofline is the 67 TFLOP/s f32 FMA rate (float32 runs
-// with TF32 off), not memory. Design: a block owns a 16 x 16 output tile x 32 output
-// channels of one image; the input halo (with the prologue applied once per
-// element) and the weight slice for a chunk of input channels are staged in
-// shared memory as f32; each of the 256 threads keeps 4 pixels x 8 channels
-// of accumulators in registers, so every shared-memory load feeds 4-8 FMAs.
-// Cross-block statistics need atomics: blocks run in no order (the TPU
-// carried the sum across its sequential grid in scratch).
+// What bounds it on the H100: CUDA-core FMAs. At f32 layer 0 is 84.2 GFLOP
+// at 1080p; no tensor cores are used here, so the roofline is the 67
+// TFLOP/s f32 FMA rate (float32 runs with TF32 off), not memory. Design: a
+// block owns a 16 x 16 output tile x 32 output channels; the input halo
+// (with the prologue applied once per element) and the weight slice for a
+// chunk of input channels are staged in shared memory as f32; each of the
+// 256 threads keeps 4 pixels x 8 channels of accumulators in registers, so
+// every shared-memory load feeds 4-8 FMAs. Cross-block statistics need
+// atomics: blocks run in no order (the TPU carried the sum across its
+// sequential grid in scratch).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -97,9 +82,8 @@ struct ConvArgs {
   void* y;            // (hout, wout, cout)
   float* stats;       // (2, cout), zeroed by the caller, or null
   void* a;            // (hin, win, cin) or null
-  int n;              // images; every tensor above is per image
   int hin, win, cin, hout, wout, cout;
-  int kh, kw, stride, pad, relu, out_relu;
+  int kh, kw, stride, pad, relu;
   int cc;             // input channels per shared-memory pass (pick_chunk)
 };
 
@@ -122,21 +106,16 @@ __global__ void __launch_bounds__(kThreads) conv_in_kernel(ConvArgs p) {
   float* s_in = smem;                                  // [cc][ih_t][iw_t]
   float* s_w = smem + in_floats(p.cc, ih_t, iw_t);     // [kh*kw][cc][kTCO]
 
-  const int co_blocks = (p.cout + kTCO - 1) / kTCO;
-  const int img = blockIdx.z / co_blocks;
-  const int64_t in_px = (int64_t)p.hin * p.win * p.cin;
-  const T* x = static_cast<const T*>(p.x) + img * in_px;
+  const T* x = static_cast<const T*>(p.x);
   const T* w = static_cast<const T*>(p.w);
-  const T* skip = p.skip ? static_cast<const T*>(p.skip)
-                               + img * (int64_t)(p.hin + 4) * (p.win + 4) * p.cin
-                         : nullptr;
-  T* y = static_cast<T*>(p.y) + img * (int64_t)p.hout * p.wout * p.cout;
-  T* a = p.a ? static_cast<T*>(p.a) + img * in_px : nullptr;
-  float* stats = p.stats ? p.stats + img * 2 * p.cout : nullptr;
+  const T* skip = static_cast<const T*>(p.skip);
+  T* y = static_cast<T*>(p.y);
+  T* a = static_cast<T*>(p.a);
+  float* stats = p.stats;
 
   const int tid = threadIdx.x;
   const int ox0 = blockIdx.x * kTW, oy0 = blockIdx.y * kTH;
-  const int co0 = (blockIdx.z % co_blocks) * kTCO;
+  const int co0 = blockIdx.z * kTCO;
   const int iy0 = oy0 * p.stride - p.pad, ix0 = ox0 * p.stride - p.pad;
   const int cg = tid / 64;            // channel group: co0 + cg*8 .. +8
   const int pg = tid % 64;            // pixel group: col pg%16, rows +4
@@ -215,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) conv_in_kernel(ConvArgs p) {
     }
   }
 
-  // epilogue: bias, ReLU, store, statistics of the stored values
+  // epilogue: bias, store, statistics of the stored values
   float ssum[kCO], ssq[kCO];
 #pragma unroll
   for (int j = 0; j < kCO; ++j) ssum[j] = ssq[j] = 0.f;
@@ -229,8 +208,7 @@ __global__ void __launch_bounds__(kThreads) conv_in_kernel(ConvArgs p) {
 #pragma unroll
       for (int j = 0; j < kCO; ++j) {
         if (cb + j < p.cout) {
-          float v = acc[i][j] + p.b[cb + j];
-          if (p.out_relu) v = fmaxf(v, 0.f);
+          const float v = acc[i][j] + p.b[cb + j];
           const T st = from_f<T>(v);
           yp[j] = st;
           const float r = to_f<T>(st);
@@ -299,9 +277,7 @@ int launch(ConvArgs& p, cudaStream_t s) {
   if (bytes > kSmemBudget) return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem<T>();
   if (e != cudaSuccess) return (int)e;
-  const long long zblocks = (long long)p.n * ((p.cout + kTCO - 1) / kTCO);
-  if (zblocks > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((p.wout + kTW - 1) / kTW, (p.hout + kTH - 1) / kTH, (unsigned)zblocks);
+  dim3 grid((p.wout + kTW - 1) / kTW, (p.hout + kTH - 1) / kTH, (p.cout + kTCO - 1) / kTCO);
   conv_in_kernel<T><<<grid, kThreads, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
@@ -309,7 +285,7 @@ int launch(ConvArgs& p, cudaStream_t s) {
 }  // namespace
 
 // Launches on the current device (the caller makes the tensors' device
-// current) and `stream`. K2 and K3: one image, prologue and statistics.
+// current) and `stream`: one image, prologue and statistics.
 extern "C" int fav_conv_in(const void* x, const void* w, const void* b,
                            const void* eff, const void* skip, void* y,
                            void* stats, void* a, int hin, int win, int cin,
@@ -320,32 +296,9 @@ extern "C" int fav_conv_in(const void* x, const void* w, const void* b,
   ConvArgs p;
   p.x = x; p.w = w; p.b = (const float*)b; p.eff = (const float*)eff;
   p.skip = skip; p.y = y; p.stats = (float*)stats; p.a = a;
-  p.n = 1;
   p.hin = hin; p.win = win; p.cin = cin;
   p.hout = hout; p.wout = wout; p.cout = cout;
   p.kh = kh; p.kw = kw; p.stride = stride; p.pad = pad; p.relu = relu;
-  p.out_relu = 0;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
-}
-
-// K4 in float32: 3x3 stride-1 conv of n images (n, hin, win, cin) -> (n,
-// hout, wout, cout) with hout = hin + 2 pad - 2, zero padding `pad` (0 or
-// 1), bias and an optional ReLU epilogue; one launch for the whole batch.
-// Bfloat16 K4 runs in conv_tc.cu.
-extern "C" int fav_conv3x3(const void* x, const void* w, const void* b, void* y,
-                           int n, int hin, int win, int cin, int cout, int pad,
-                           int relu, void* stream) {
-  if (n < 1 || cout < 1 || cin < 1 || pad < 0 || pad > 1)
-    return (int)cudaErrorInvalidValue;
-  ConvArgs p;
-  p.x = x; p.w = w; p.b = (const float*)b; p.eff = nullptr;
-  p.skip = nullptr; p.y = y; p.stats = nullptr; p.a = nullptr;
-  p.n = n;
-  p.hin = hin; p.win = win; p.cin = cin;
-  p.hout = hin + 2 * pad - 2; p.wout = win + 2 * pad - 2; p.cout = cout;
-  if (p.hout < 1 || p.wout < 1) return (int)cudaErrorInvalidValue;
-  p.kh = 3; p.kw = 3; p.stride = 1; p.pad = pad; p.relu = 0;
-  p.out_relu = relu;
-  return launch<float>(p, (cudaStream_t)stream);
 }

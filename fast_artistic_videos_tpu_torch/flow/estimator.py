@@ -5,7 +5,8 @@ context head, the streaming ``prep`` / ``refine_pair`` entry points and
 their batch forms ``prep_batch`` / ``refine_pair_batch`` for the VR
 driver's six cube faces).
 
-Its convs are plain ``F.conv2d`` (the JAX package leaves them to XLA); the
+Its convs are plain ``F.conv2d`` (the JAX package leaves them to XLA), in
+float32 without TF32 (``core.device.float32_convs``); the
 feature warps go through the banded warp, kernel K1 on CUDA. Activations
 are NHWC at every function boundary; flow is (N, H, W, 2) (dx, dy) float32
 in pixels of the level it lives on.
@@ -51,7 +52,8 @@ def _conv(params, name, x, stride=1, relu=True, dilation=1):
     ph = _same_pads(x.shape[1], k, stride, dilation)
     pw = _same_pads(x.shape[2], k, stride, dilation)
     xc = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
-    y = F.conv2d(xc, w, None, stride, 0, dilation).permute(0, 2, 3, 1)
+    with device_mod.float32_convs():
+        y = F.conv2d(xc, w, None, stride, 0, dilation).permute(0, 2, 3, 1)
     y = y + p["b"].to(x.dtype)
     return F.leaky_relu(y, 0.1) if relu else y
 

@@ -62,8 +62,9 @@ def _pad2d(x, pad: int, mode: str):
 
 
 def conv2d(x, w, b, stride: int = 1, pad: int = 0):
-    """Zero-padded conv in x's dtype; w OIHW."""
-    y = F.conv2d(_nchw(x), w.to(x.dtype), None, stride, pad)
+    """Zero-padded conv in x's dtype (float32 without TF32); w OIHW."""
+    with device_mod.float32_convs():
+        y = F.conv2d(_nchw(x), w.to(x.dtype), None, stride, pad)
     return _nhwc(y) + b.to(x.dtype)
 
 
@@ -75,7 +76,8 @@ def conv_transpose2d(x, w, b, stride: int, pad: int, out_adjust: int):
     result is F.conv_transpose2d with the kernel flipped back and its
     in/out axes swapped."""
     wt = w.to(x.dtype).flip(2, 3).transpose(0, 1)
-    y = F.conv_transpose2d(_nchw(x), wt, None, stride, pad, out_adjust)
+    with device_mod.float32_convs():
+        y = F.conv_transpose2d(_nchw(x), wt, None, stride, pad, out_adjust)
     return _nhwc(y) + b.to(x.dtype)
 
 

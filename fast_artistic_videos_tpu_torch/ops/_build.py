@@ -37,7 +37,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "fav_warp_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fav_conv_in": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
-    "fav_conv3x3": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "fav_conv3x3_f32": [_P] * 8 + [_I] * 8 + [_P],
     "fav_strip_warp": [_P] * 6 + [_I] * 12 + [_P],
     "fav_conv_tc": [_P] * 8 + [_I] * 8 + [_P],
     "fav_front_tc": [_P] * 6 + [_I] * 8 + [_P],
@@ -121,8 +121,8 @@ class Kernel:
 
     ``launches`` rises by one each time the wrapper launches the kernel and
     at no other time; ``routes[entry]`` counts the same launches by the C
-    entry that took them (K2 and K4 have a CUDA-core and a tensor-core
-    route). :meth:`reset` sets both to 0."""
+    entry that took them (K2 and K4 have a float32 and a tensor-core
+    route, K2 and K3 also the general template). :meth:`reset` sets both to 0."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name

@@ -11,17 +11,22 @@ parameter layout) and are cast to x's dtype, as the Pallas kernels do.
 Values are rounded to the storage dtype after the affine, after the skip
 add and at the store; the statistics are float32.
 
-Three routes, chosen by :func:`tensor_core_route`, a pure function of the
-dtype and the conv's shape. In bfloat16: 3x3 stride-1 convs with Cin % 64
-== 0 and Cout % 128 == 0 (every conv of the R128 residual chain, K2, and
-every block conv of K4) launch the tensor-core kernel ``conv_tc.cu`` (entry
+Four routes, chosen by :func:`conv_route`, a pure function of the dtype
+and the conv's shape that names the C entry. In bfloat16
+(:func:`tensor_core_route`): 3x3 stride-1 convs with Cin % 64 == 0 and
+Cout % 128 == 0 (every conv of the R128 residual chain, K2, and every block
+conv of K4) launch the tensor-core kernel ``conv_tc.cu`` (entry
 ``fav_conv_tc``); the front's shapes (K3: 9x9 stride 1 pad 4 with Cin <= 8
 and Cout % 32 == 0, layer 0; 3x3 stride 2 pad 1 with Cin % 32 == 0 and
 Cout % 64 == 0, layers 1 and 2) launch the tensor-core kernel
 ``front_tc.cu`` (entry ``fav_front_tc``, weights packed by
-:func:`pack_front_weights`). Float32 and every other shape launch the
-CUDA-core template ``conv_in.cu``. Every route raises on a failed launch;
-none falls back to another.
+:func:`pack_front_weights`). In float32, 3x3 stride-1 convs with pad 0 or
+1, Cin % 8 == 0 and Cout % 128 == 0 (every K2 and K4 conv of the
+stylizer) launch the register-tiled CUDA-core kernel ``conv3x3_f32.cu``
+(entry ``fav_conv3x3_f32``, weights packed by
+:func:`pack_conv3x3_f32_weights`). Every other shape launches the general
+CUDA-core template ``conv_in.cu`` (``fav_conv_in``). Every route raises on
+a failed launch; none falls back to another.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from ._build import Kernel, ptr
 TC_ENTRY = "fav_conv_tc"
 FRONT_TC_ENTRY = "fav_front_tc"
 TC_ENTRIES = (TC_ENTRY, FRONT_TC_ENTRY)
+F32_ENTRY = "fav_conv3x3_f32"
+GENERAL_ENTRY = "fav_conv_in"
 
 
 def tensor_core_route(dtype, kh: int, kw: int, stride: int, pad: int, cin: int,
@@ -52,6 +59,20 @@ def tensor_core_route(dtype, kh: int, kw: int, stride: int, pad: int, cin: int,
     if kh == 3 and stride == 2 and pad == 1 and cin % 32 == 0 and cout % 64 == 0:
         return FRONT_TC_ENTRY
     return None
+
+
+def conv_route(dtype, kh: int, kw: int, stride: int, pad: int, cin: int, cout: int) -> str:
+    """The C entry a conv launches: the tensor-core entry that
+    :func:`tensor_core_route` names in bfloat16; ``fav_conv3x3_f32`` for a
+    float32 3x3, stride 1, pad 0 or 1 conv with Cin % 8 == 0 and Cout % 128
+    == 0; ``fav_conv_in`` otherwise."""
+    tc = tensor_core_route(dtype, kh, kw, stride, pad, cin, cout)
+    if tc is not None:
+        return tc
+    if (dtype == torch.float32 and kh == kw == 3 and stride == 1 and pad in (0, 1)
+            and cin % 8 == 0 and cout % 128 == 0):
+        return F32_ENTRY
+    return GENERAL_ENTRY
 
 
 def front_chunk(kh: int, cin: int) -> int:
@@ -80,30 +101,56 @@ def pack_front_weights(w):
     return wt.reshape(cout, -1, 64).permute(1, 0, 2).contiguous()
 
 
-def _front_weights(w):
-    """:func:`pack_front_weights` of `w`, kept on the tensor until it is
-    modified in place (its version changes): the stylizer's weights are
-    packed once, not on every launch."""
-    cached = getattr(w, "_front_tc_pack", None)
+def pack_conv3x3_f32_weights(w):
+    """OIHW weights -> the (Cin, 3, 3, Cout) float32 layout that
+    ``conv3x3_f32.cu`` reads: a chunk of 8 input channels is 72 rows (its
+    channels, then the taps) of contiguous output channels."""
+    return w.float().permute(1, 2, 3, 0).contiguous()
+
+
+def _packed(w, attr: str, pack):
+    """pack(w), kept on the tensor until it is modified in place (its
+    version changes): the stylizer's weights are packed once, not on every
+    launch."""
+    cached = getattr(w, attr, None)
     if cached is None or cached[0] != w._version:
-        cached = (w._version, pack_front_weights(w))
-        w._front_tc_pack = cached
+        cached = (w._version, pack(w))
+        setattr(w, attr, cached)
     return cached[1]
 
 
-def launch_tc(kernel: Kernel, x, w, bt, y, *, pad: int, eff=None, relu: bool = False,
-              skip=None, stats=None, a=None, out_relu: bool = False):
-    """Launch ``fav_conv_tc`` for `kernel` on validated CUDA tensors: x
-    (N, H, W, Cin) bf16, w OIHW, bt the float32 bias rounded to bf16, y
-    (N, Ho, Wo, Cout) preallocated; eff / skip / stats / a as in
-    :func:`conv_in` (N == 1 for skip and a)."""
-    wt = w.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()   # (3, 3, Cout, Cin)
-    for t in (x, skip, y, a):
+def _front_weights(w):
+    return _packed(w, "_front_tc_pack", pack_front_weights)
+
+
+def _f32_weights(w):
+    return _packed(w, "_conv3x3_f32_pack", pack_conv3x3_f32_weights)
+
+
+def _tc_weights(w):
+    return w.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()   # (3, 3, Cout, Cin)
+
+
+# the 3x3 stride-1 entries: C entry -> (weight packer, whether x, skip and a
+# must be 16-byte aligned as well as y and the packed weights)
+CONV3X3_ENTRIES = {TC_ENTRY: (_tc_weights, True), F32_ENTRY: (_f32_weights, False)}
+
+
+def launch_3x3(kernel: Kernel, entry: str, x, w, bt, y, *, pad: int, eff=None,
+               relu: bool = False, skip=None, stats=None, a=None, out_relu: bool = False):
+    """Launch the 3x3 stride-1 C entry `entry` (a key of
+    :data:`CONV3X3_ENTRIES`, as :func:`conv_route` names it) for `kernel`
+    on validated CUDA tensors: x (N, H, W, Cin), w OIHW, bt the float32 bias
+    rounded to x's dtype, y (N, Ho, Wo, Cout) preallocated; eff / skip /
+    stats / a as in :func:`conv_in` (N == 1 for skip and a)."""
+    pack, all_aligned = CONV3X3_ENTRIES[entry]
+    wt = pack(w)
+    for t in ((x, skip, y, a, wt) if all_aligned else (y, wt)):
         if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{kernel.name}: the tensor-core route needs 16-byte "
-                             f"aligned tensors")
+            raise ValueError(f"{kernel.name}: {entry} needs 16-byte aligned "
+                             f"{'tensors' if all_aligned else 'weights and output'}")
     n, hin, win, cin = x.shape
-    kernel.call(TC_ENTRY, x.device, ptr(x), ptr(wt), ptr(bt), ptr(eff), ptr(skip),
+    kernel.call(entry, x.device, ptr(x), ptr(wt), ptr(bt), ptr(eff), ptr(skip),
                 ptr(y), ptr(stats), ptr(a), n, hin, win, cin, w.shape[0], pad,
                 int(relu), int(out_relu))
 
@@ -137,8 +184,8 @@ def conv_in_plain(x, w, b, *, stride: int, pad: int, eff=None, relu: bool = Fals
 def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
             relu: bool = False, skip=None, emit_input: bool = False):
     """Launch `kernel` (K2 or K3) on a CUDA tensor, on the route that
-    :func:`tensor_core_route` names (the front's route takes no skip and
-    no emission); plain version on CPU. Returns (y,
+    :func:`conv_route` names (the front's route takes no skip and no
+    emission); plain version on CPU. Returns (y,
     stats) or (y, stats, a) with emit_input."""
     if x.device.type == "cpu":
         return conv_in_plain(x, w, b, stride=stride, pad=pad, eff=eff, relu=relu,
@@ -174,10 +221,10 @@ def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
     y = torch.empty((hout, wout, cout), dtype=dtype, device=x.device)
     stats = torch.zeros((2, cout), dtype=torch.float32, device=x.device)
     a = torch.empty_like(x) if emit_input else None
-    route = tensor_core_route(dtype, kh, kw, stride, pad, cin, cout)
-    if route == TC_ENTRY:
-        launch_tc(kernel, x[None], w, bt, y[None], pad=pad, eff=effc, relu=relu,
-                  skip=skip, stats=stats, a=a)
+    route = conv_route(dtype, kh, kw, stride, pad, cin, cout)
+    if route in CONV3X3_ENTRIES:
+        launch_3x3(kernel, route, x[None], w, bt, y[None], pad=pad, eff=effc, relu=relu,
+                   skip=skip, stats=stats, a=a)
         return (y, stats, a) if emit_input else (y, stats)
     if route == FRONT_TC_ENTRY:
         if skip is not None or emit_input:
@@ -191,7 +238,7 @@ def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
                     int(relu))
         return y, stats
     wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()          # HWIO
-    kernel.call("fav_conv_in", x.device, ptr(x), ptr(wt), ptr(bt), ptr(effc),
+    kernel.call(GENERAL_ENTRY, x.device, ptr(x), ptr(wt), ptr(bt), ptr(effc),
                 ptr(skip), ptr(y), ptr(stats), ptr(a), hin, win, cin, hout, wout,
                 cout, kh, kw, stride, pad, int(relu), int(dtype == torch.bfloat16))
     return (y, stats, a) if emit_input else (y, stats)

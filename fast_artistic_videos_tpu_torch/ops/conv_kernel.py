@@ -1,6 +1,6 @@
 """K4: the 3x3 stride-1 block conv — wrapper of ``csrc/conv_tc.cu``
-(bfloat16) and ``csrc/conv_in.cu``'s ``fav_conv3x3`` configuration
-(float32), and its plain PyTorch version.
+(bfloat16) and ``csrc/conv3x3_f32.cu`` (float32), and its plain PyTorch
+version.
 
 Replaces ``fast_artistic_videos_tpu/ops/conv_pallas.py`` ``_conv3x3_kernel``
 (``conv3x3_pallas`` / ``conv3x3_pallas_valid``): the residual- and
@@ -14,11 +14,12 @@ replicate padding.
 x is (N, H, W, C) NHWC in float32 or bfloat16, weights OIHW (the port's
 parameter layout) cast to x's dtype, as the Pallas kernel casts them. The
 whole batch is one launch, as the JAX package's ``vmap`` over one
-``pallas_call`` is one kernel. The route is ``_conv_in.tensor_core_route``
-of the dtype and widths: bfloat16 with Cin % 64 == 0 and Cout % 128 == 0
+``pallas_call`` is one kernel. The route is ``_conv_in.conv_route`` of
+the dtype and widths: bfloat16 with Cin % 64 == 0 and Cout % 128 == 0
 (every K4 shape of the stylizer) runs on the tensor cores (``conv_tc.cu``),
-float32 on the CUDA-core template (``conv_in.cu``, float32 only); bfloat16
-at other widths, outside K4's contract, raises, as does a failed launch.
+float32 with Cin % 8 == 0 and Cout % 128 == 0 on the register-tiled
+CUDA-core kernel (``conv3x3_f32.cu``); other widths, outside K4's contract
+(``conv_pallas`` takes multiples of 128), raise, as does a failed launch.
 """
 
 from __future__ import annotations
@@ -26,10 +27,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import Kernel, ptr
-from ._conv_in import launch_tc, tensor_core_route
+from ._build import Kernel
+from ._conv_in import CONV3X3_ENTRIES, conv_route, launch_3x3
 
-KERNEL = Kernel("conv3x3", "fast_artistic_videos_tpu_torch/csrc/conv_in.cu",
+KERNEL = Kernel("conv3x3", "fast_artistic_videos_tpu_torch/csrc/conv3x3_f32.cu",
                 "fast_artistic_videos_tpu/ops/conv_pallas.py:40")
 
 
@@ -68,16 +69,12 @@ def _launch(x, w, b, relu: bool, pad: int):
     y = torch.empty((n, hout, wout, cout), dtype=dtype, device=x.device)
     if not y.numel():
         return y
-    if tensor_core_route(dtype, 3, 3, 1, pad, cin, cout):
-        launch_tc(KERNEL, x, w, bt, y, pad=pad, out_relu=relu)
-    elif dtype == torch.bfloat16:
-        raise ValueError(f"conv3x3: bfloat16 runs only on the tensor-core route "
-                         f"(Cin % 64 == 0, Cout % 128 == 0; conv_pallas takes multiples "
-                         f"of 128); got {cin} -> {cout}")
-    else:
-        wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()       # HWIO, float32
-        KERNEL.call("fav_conv3x3", x.device, ptr(x), ptr(wt), ptr(bt), ptr(y),
-                    n, hin, win, cin, cout, pad, int(relu))
+    route = conv_route(dtype, 3, 3, 1, pad, cin, cout)
+    if route not in CONV3X3_ENTRIES:
+        raise ValueError(f"conv3x3: no kernel for {dtype} {cin} -> {cout} (bfloat16 needs "
+                         f"Cin % 64 == 0, float32 Cin % 8 == 0, both Cout % 128 == 0; "
+                         f"conv_pallas takes multiples of 128)")
+    launch_3x3(KERNEL, route, x, w, bt, y, pad=pad, out_relu=relu)
     return y
 
 

@@ -11,11 +11,13 @@ The TPU kernel runs the whole chain on one constant, aligned physical shape
 and masks its statistics to the valid extent; that is a TPU alignment
 workaround. Here every conv runs on its logical (shrinking) shape:
 x (H, W, C) -> y (H - 2, W - 2, Cout), and the statistics cover all of y.
-CUDA kernels, by ``_conv_in.tensor_core_route`` of the dtype and widths:
-bfloat16 with C % 64 == 0 and Cout % 128 == 0 (every conv of the R128
-chain) runs on the tensor cores (``csrc/conv_tc.cu``); float32 and other
-widths on the CUDA-core template (``csrc/conv_in.cu``), both with (kh, kw,
-stride, pad) = (3, 3, 1, 0). ``KERNEL.routes`` counts the launches of each.
+CUDA kernels, by ``_conv_in.conv_route`` of the dtype and widths, each
+with (kh, kw, stride, pad) = (3, 3, 1, 0): bfloat16 with C % 64 == 0 and
+Cout % 128 == 0 (every conv of the R128 chain) runs on the tensor cores
+(``csrc/conv_tc.cu``), float32 with C % 8 == 0 and Cout % 128 == 0 on the
+register-tiled CUDA-core kernel (``csrc/conv3x3_f32.cu``), other widths on
+the general CUDA-core template (``csrc/conv_in.cu``). ``KERNEL.routes``
+counts the launches of each.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 from ._build import Kernel
 from ._conv_in import conv_in, conv_in_plain
 
-KERNEL = Kernel("res_chain_conv", "fast_artistic_videos_tpu_torch/csrc/conv_in.cu",
+KERNEL = Kernel("res_chain_conv", "fast_artistic_videos_tpu_torch/csrc/conv3x3_f32.cu",
                 "fast_artistic_videos_tpu/ops/rblock_pallas.py:69")
 
 

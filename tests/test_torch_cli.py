@@ -158,3 +158,18 @@ def test_entry_points_default_to_the_card(name):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match='pass device="cpu"'):
         _entry_points()[name]()
+
+
+def test_flow_device_past_the_card_count_is_not_pinned(monkeypatch):
+    """--flow_device pins the flow stage to card N only when 0 <= N < the
+    card count, as the JAX CLI does; otherwise the stage stays on the run's
+    device (on a one-card host, --flow_device 1 used to raise)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cuda = torch.device("cuda")
+    assert tcli.flow_stage_device(1, cuda) == cuda
+    assert tcli.flow_stage_device(5, torch.device("cuda", 0)) == torch.device("cuda", 0)
+    assert tcli.flow_stage_device(0, cuda) == torch.device("cuda", 0)
+    assert tcli.flow_stage_device(-1, cuda) == cuda
+    assert tcli.flow_stage_device(0, torch.device("cpu")) == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert tcli.flow_stage_device(3, cuda) == torch.device("cuda", 3)

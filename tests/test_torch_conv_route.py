@@ -6,8 +6,13 @@ bfloat16, 3x3 stride-1 convs with Cin % 64 == 0 and Cout % 128 == 0 (the
 residual chain, K2, and the block convs, K4) run on ``csrc/conv_tc.cu``
 (``fav_conv_tc``), the front's shapes (K3: 9x9 stride 1 with Cin <= 8 and
 Cout % 32 == 0; 3x3 stride 2 with Cin % 32 == 0 and Cout % 64 == 0) on
-``csrc/front_tc.cu`` (``fav_front_tc``); float32 and other shapes stay on
-``csrc/conv_in.cu`` (None). The C entries are bound through ctypes with the
+``csrc/front_tc.cu`` (``fav_front_tc``); float32 and other shapes have no
+tensor-core entry (None). ``ops/_conv_in.conv_route`` names every C entry:
+the tensor-core one where there is one, ``fav_conv3x3_f32``
+(``csrc/conv3x3_f32.cu``) for float32 3x3 stride-1 convs with pad 0 or 1,
+Cin % 8 == 0 and Cout % 128 == 0 (every float32 K2 and K4 conv of the
+stylizer), and ``fav_conv_in`` (``csrc/conv_in.cu``) for the rest. The C
+entries are bound through ctypes with the
 argument kinds of ``ops/_build.SIGNATURES``: a pointer declared there as an
 int would be cut to 32 bits without any error, so every ``extern "C"``
 entry of ``csrc/*.cu`` is checked against it here.
@@ -25,6 +30,7 @@ from fast_artistic_videos_tpu_torch.ops import _build, _conv_in
 
 BF16, F32 = torch.bfloat16, torch.float32
 TC, FRONT = "fav_conv_tc", "fav_front_tc"
+F32_3X3, GENERAL = "fav_conv3x3_f32", "fav_conv_in"
 
 
 @pytest.mark.parametrize("dtype,k,stride,pad,cin,cout,want", [
@@ -83,6 +89,53 @@ def test_tensor_core_route_covers_the_stylizer_widths():
         cin = l.out_channels
 
 
+@pytest.mark.parametrize("dtype,k,stride,pad,cin,cout,want", [
+    (F32, 3, 1, 0, 128, 128, F32_3X3),    # K2: every conv of the R128 chain
+    (F32, 3, 1, 1, 128, 128, F32_3X3),    # K4 SAME
+    (F32, 3, 1, 0, 128, 256, F32_3X3),    # K4 VALID, two channel blocks
+    (F32, 3, 1, 1, 256, 256, F32_3X3),
+    (F32, 3, 1, 0, 8, 128, F32_3X3),      # one 8-channel chunk
+    (F32, 3, 1, 0, 40, 128, F32_3X3),     # five chunks
+    (F32, 9, 1, 4, 7, 32, GENERAL),       # K3 layer 0 in float32
+    (F32, 3, 2, 1, 32, 64, GENERAL),      # K3 layers 1 and 2 (stride 2)
+    (F32, 3, 2, 1, 64, 128, GENERAL),
+    (F32, 3, 1, 0, 40, 48, GENERAL),      # narrow Cout
+    (F32, 3, 1, 0, 12, 128, GENERAL),     # Cin not a multiple of 8
+    (F32, 3, 1, 0, 128, 64, GENERAL),     # Cout not a multiple of 128
+    (F32, 3, 1, 2, 128, 128, GENERAL),    # pad beyond the halo
+    (F32, 5, 1, 2, 128, 128, GENERAL),    # another kernel size
+    (BF16, 3, 1, 0, 128, 128, TC),        # bfloat16: as tensor_core_route says
+    (BF16, 3, 1, 1, 256, 256, TC),
+    (BF16, 9, 1, 4, 7, 32, FRONT),
+    (BF16, 3, 2, 1, 64, 128, FRONT),
+    (BF16, 3, 1, 0, 40, 48, GENERAL),
+    (BF16, 3, 1, 0, 96, 128, GENERAL),
+    (torch.float16, 3, 1, 0, 128, 128, GENERAL),
+])
+def test_conv_route_rule(dtype, k, stride, pad, cin, cout, want):
+    assert _conv_in.conv_route(dtype, k, k, stride, pad, cin, cout) == want
+    tc = _conv_in.tensor_core_route(dtype, k, k, stride, pad, cin, cout)
+    assert want == tc if tc is not None else want in (F32_3X3, GENERAL)
+
+
+def test_conv_route_covers_the_stylizer_widths():
+    """Every float32 K2 and K4 conv of the demo model takes conv3x3_f32.cu;
+    the float32 front (K3) stays on conv_in.cu."""
+    from fast_artistic_videos_tpu_torch.models import checkpoint
+
+    spec = checkpoint.load_model("demo", "cpu")[0]
+    for l in spec.layers:
+        if l.kind == "res_block":
+            d = l.out_channels
+            assert _conv_in.conv_route(F32, 3, 3, 1, 0, d, d) == F32_3X3      # K2
+            assert _conv_in.conv_route(F32, 3, 3, 1, 1, d, d) == F32_3X3      # K4 SAME
+    cin = spec.in_channels
+    for l in spec.layers[:3]:
+        shape = (l.ksize, l.ksize, l.stride, l.pad, cin, l.out_channels)
+        assert _conv_in.conv_route(F32, *shape) == GENERAL
+        cin = l.out_channels
+
+
 def _c_entries():
     """{name: [kind, ...]} of every extern "C" function in csrc/*.cu, kind
     "p" for a pointer and "i" for an int."""
@@ -106,7 +159,7 @@ def _c_entries():
 
 def test_every_c_entry_has_a_matching_signature():
     entries = _c_entries()
-    assert {"fav_conv_tc", "fav_front_tc", "fav_conv_in"} <= set(entries)
+    assert {"fav_conv_tc", "fav_front_tc", "fav_conv_in", "fav_conv3x3_f32"} <= set(entries)
     assert set(entries) == set(_build.SIGNATURES)
     for name, kinds in entries.items():
         bound = ["p" if t is ctypes.c_void_p else "i" if t is ctypes.c_int else "?"

@@ -7,13 +7,16 @@ without one. This file imports no jax, so on the card host it runs alone:
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import contextlib
 import threading
 
 import numpy as np
 import pytest
 import torch
 
-from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
+from fast_artistic_videos_tpu_torch.core import device as device_mod
+from fast_artistic_videos_tpu_torch.flow import estimator
+from fast_artistic_videos_tpu_torch.models import arch_dsl, checkpoint, stylizer
 from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel, front_kernel, rblock_kernel
 from fast_artistic_videos_tpu_torch.ops import warp_kernel
 from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
@@ -66,20 +69,23 @@ def _stats_err(got, want, count):
 @pytest.mark.parametrize("eff,relu,skip,emit,narrow_cout", [
     (False, False, False, False, 32), (True, True, False, True, 48),
     (True, False, True, True, 64), (False, False, False, True, 40)])
-@pytest.mark.parametrize("c,h,w", [(40, 37, 29), (128, 37, 29), (128, 67, 131)])
+@pytest.mark.parametrize("c,h,w,wide", [(40, 37, 29, None), (128, 37, 29, 128),
+                                        (128, 67, 131, 128), (128, 37, 29, 256)])
 def test_chain_conv_kernel_matches_plain(cuda, dtype, tol, eff, relu, skip, emit,
-                                         narrow_cout, c, h, w):
+                                         narrow_cout, c, h, w, wide):
     """K2, one launch, against its plain version (relative L2 of y, the
-    statistics and `a`: 1e-4 float32, 1e-2 bfloat16). At 40 input channels
-    (Cout `narrow_cout`) and in float32 it takes the CUDA-core route. At
-    128 -> 128 in bfloat16 it takes the tensor-core route, at sizes that are
-    no multiple of its 16 x 16 tile: there the statistics are also held
-    within 1e-2 as the instance norm reads them, and the emitted prologue
-    result `a` is bit-identical to the plain prologue everywhere, tile
-    borders included (the kernel rounds after the multiply, the add and the
-    skip add as PyTorch does)."""
+    statistics and `a`: 1e-4 float32, 1e-2 bfloat16), on the entry that
+    conv_route names. At 40 input channels (Cout `narrow_cout`) it takes
+    the general CUDA-core template (conv_in.cu). At 128 -> 128 or 256 it
+    takes the float32 3x3 kernel (conv3x3_f32.cu, 8 x 16 tiles) in float32
+    and the tensor-core route (16 x 16 tiles) in bfloat16, at sizes that are
+    no multiple of either tile. There the emitted prologue result `a` is
+    bit-identical to the plain prologue everywhere, tile borders included
+    (both kernels round after the multiply, the add and the skip add as
+    PyTorch does), and in bfloat16 the statistics are also held within 1e-2
+    as the instance norm reads them."""
     rng = np.random.default_rng(2)
-    cout = narrow_cout if c == 40 else 128
+    cout = narrow_cout if c == 40 else wide
     x = _t(rng.standard_normal((h, w, c)), cuda, dtype)
     wt = _t(rng.standard_normal((cout, c, 3, 3)) / np.sqrt(9 * c), cuda)
     b = _t(rng.standard_normal(cout) * 0.1, cuda)
@@ -87,8 +93,9 @@ def test_chain_conv_kernel_matches_plain(cuda, dtype, tol, eff, relu, skip, emit
               if eff else None, pre_relu=relu,
               skip=_t(rng.standard_normal((h + 4, w + 4, c)), cuda, dtype) if skip else None,
               emit_input=emit)
-    tc = dtype == torch.bfloat16 and c == 128
-    entry = "fav_conv_tc" if tc else "fav_conv_in"
+    entry = _conv_in.conv_route(dtype, 3, 3, 1, 0, c, cout)
+    assert entry == ("fav_conv_in" if c == 40 else
+                     "fav_conv_tc" if dtype == torch.bfloat16 else "fav_conv3x3_f32")
     k = rblock_kernel.KERNEL
     before = (k.launches, k.routes.get(entry, 0))
     got = rblock_kernel.chain_conv(x, wt, b, **kw)
@@ -98,13 +105,14 @@ def test_chain_conv_kernel_matches_plain(cuda, dtype, tol, eff, relu, skip, emit
     for g, ref in zip(got, want):
         g, ref = g.float(), ref.float()
         assert ((g - ref).norm() / ref.norm()).item() <= tol
-    if not tc:
+    if entry == "fav_conv_in":
         return
-    assert _stats_err(got[1], want[1], (h - 2) * (w - 2)) <= 1e-2
+    if entry == "fav_conv_tc":
+        assert _stats_err(got[1], want[1], (h - 2) * (w - 2)) <= 1e-2
     if emit:
-        assert got[2].dtype == torch.bfloat16 and torch.equal(got[2], want[2])
-        # the rows and columns where 16-pixel tiles meet, explicitly
-        for r in (15, 16, 17, h - 1):
+        assert got[2].dtype == dtype and torch.equal(got[2], want[2])
+        # the rows and columns where 8- and 16-pixel tiles meet, explicitly
+        for r in (7, 8, 9, 15, 16, 17, h - 1):
             assert torch.equal(got[2][r], want[2][r])
         for q in (15, 16, 17, w - 1):
             assert torch.equal(got[2][:, q], want[2][:, q])
@@ -168,18 +176,20 @@ def test_front_conv_kernel_matches_plain(cuda, dtype, tol, prologue, h, w, k, st
 @pytest.mark.parametrize("same", [True, False])
 @pytest.mark.parametrize("cout", [128, 256])
 @pytest.mark.parametrize("relu", [False, True])
-def test_block_conv_kernel_matches_plain(cuda, dtype, tol, n, same, cout, relu):
-    """K4, one launch for the whole batch, at a size that is no multiple of
-    the 16 x 16 tile, against its plain version (relative L2: 1e-4
-    float32, 1e-2 bfloat16). Float32 takes the CUDA-core route, bfloat16
-    the tensor-core route."""
+@pytest.mark.parametrize("h,w", [(21, 35), (67, 131)])
+def test_block_conv_kernel_matches_plain(cuda, dtype, tol, n, same, cout, relu, h, w):
+    """K4, one launch for the whole batch, at sizes that are no multiple of
+    the 8 x 16 or 16 x 16 tile, against its plain version (relative L2:
+    1e-4 float32, 1e-2 bfloat16). Float32 takes the float32 3x3 kernel
+    (conv3x3_f32.cu), bfloat16 the tensor-core route."""
     rng = np.random.default_rng(7)
-    h, w, c = 21, 35, 128
+    c = 128
     x = _t(rng.standard_normal((n, h, w, c)), cuda, dtype)
     wt = _t(rng.standard_normal((cout, c, 3, 3)) / np.sqrt(9 * c), cuda)
     b = _t(rng.standard_normal(cout) * 0.1, cuda)
     fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
-    entry = "fav_conv_tc" if dtype == torch.bfloat16 else "fav_conv3x3"
+    entry = _conv_in.conv_route(dtype, 3, 3, 1, 1 if same else 0, c, cout)
+    assert entry == ("fav_conv_tc" if dtype == torch.bfloat16 else "fav_conv3x3_f32")
     k = conv_kernel.KERNEL
     before = (k.launches, k.routes.get(entry, 0))
     got = fn(x, wt, b, relu)
@@ -225,8 +235,8 @@ def test_tensor_core_input_widths(cuda, cin):
 
 def test_route_counters_rise_once_per_launch(cuda):
     """Three bfloat16 launches add three to `launches` and to the
-    tensor-core route; a float32 launch adds one to `launches` and none to
-    it."""
+    tensor-core route; a float32 launch adds one to `launches` and to the
+    float32 3x3 route, none to the tensor-core one."""
     rng = np.random.default_rng(11)
     x = _t(rng.standard_normal((2, 12, 20, 128)), cuda, torch.bfloat16)
     wt = _t(rng.standard_normal((128, 128, 3, 3)) / 34, cuda)
@@ -237,7 +247,7 @@ def test_route_counters_rise_once_per_launch(cuda):
         conv_kernel.conv3x3(x, wt, b)
     assert k.launches == 3 and k.routes == {"fav_conv_tc": 3}
     conv_kernel.conv3x3(x.float(), wt, b)
-    assert k.launches == 4 and k.routes == {"fav_conv_tc": 3, "fav_conv3x3": 1}
+    assert k.launches == 4 and k.routes == {"fav_conv_tc": 3, "fav_conv3x3_f32": 1}
     k.reset()
     assert k.launches == 0 and k.routes == {}
 
@@ -287,25 +297,34 @@ def test_strip_warp_kernel_matches_plain(cuda, face, overlap, dtype, batch):
 
 
 def test_stylizer_kernel_path_matches_plain_path(cuda):
+    """Batch 1 in float32: K3 three launches on the general template, K2
+    ten on the float32 3x3 kernel, within max-abs/255 1e-3 of the cuDNN
+    path."""
     spec, params, _ = checkpoint.load_model("demo", cuda)
     x = _t(np.random.default_rng(4).standard_normal((1, 96, 128, 7)) * 60, cuda)
     kernels = (front_kernel.KERNEL, rblock_kernel.KERNEL, conv_kernel.KERNEL)
     before = [k.launches for k in kernels]
+    routes = [dict(k.routes) for k in kernels]
     got = stylizer.apply(params, spec, x)                 # CUDA: kernels by default
     assert [k.launches - b for k, b in zip(kernels, before)] == [3, 10, 0]
+    assert [k.routes.get(e, 0) - r.get(e, 0) for k, r, e in zip(
+        kernels, routes, ("fav_conv_in", "fav_conv3x3_f32", "fav_conv3x3_f32"))] == [3, 10, 0]
     want = stylizer.apply(params, spec, x, fused=False)
     assert (got - want).abs().max().item() / 255.0 <= 1e-3
 
 
 def test_stylizer_batched_kernel_path_matches_plain_path(cuda):
     """Batch 3: the residual blocks go through K4 (10 launches, one per
-    conv for the whole batch), against the cuDNN path."""
+    conv for the whole batch, on the float32 3x3 kernel), against the cuDNN
+    path."""
     spec, params, _ = checkpoint.load_model("demo", cuda)
     x = _t(np.random.default_rng(8).standard_normal((3, 64, 96, 7)) * 60, cuda)
     kernels = (front_kernel.KERNEL, rblock_kernel.KERNEL, conv_kernel.KERNEL)
     before = [k.launches for k in kernels]
+    f32 = conv_kernel.KERNEL.routes.get("fav_conv3x3_f32", 0)
     got = stylizer.apply(params, spec, x)
     assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 10]
+    assert conv_kernel.KERNEL.routes.get("fav_conv3x3_f32", 0) == f32 + 10
     want = stylizer.apply(params, spec, x, fused=False)
     assert (got - want).abs().max().item() / 255.0 <= 1e-3
 
@@ -325,6 +344,11 @@ def test_kernels_launch_on_the_tensors_card(cuda):
     x = _t(rng.standard_normal((20, 24, 32)), dev)
     wt = _t(rng.standard_normal((32, 32, 3, 3)) / 17, dev)
     b = _t(rng.standard_normal(32) * 0.1, dev)
+    # float32 128 -> 128: the float32 3x3 kernel (97 KB of shared memory, a
+    # limit lifted per card), K2 with its prologue and K4
+    x3 = _t(rng.standard_normal((20, 37, 128)), dev)
+    e3 = _t(np.stack([rng.random(128) + 0.5, rng.standard_normal(128) * 0.1]), dev)
+    s3 = _t(rng.standard_normal((24, 41, 128)), dev)
     # bfloat16 128 -> 128: the tensor-core kernel, whose larger shared-memory
     # limit is lifted per card as well
     xb = _t(rng.standard_normal((20, 24, 128)), dev, torch.bfloat16)
@@ -353,6 +377,14 @@ def test_kernels_launch_on_the_tensors_card(cuda):
                           rblock_kernel.chain_conv_plain(x, wt, b)):
             assert rel(g, ref) <= 1e-4
         kernels = (rblock_kernel.KERNEL, conv_kernel.KERNEL)
+        before = [k.routes.get("fav_conv3x3_f32", 0) for k in kernels]
+        kw = dict(eff=e3, skip=s3, emit_input=True)
+        for g, ref in zip(rblock_kernel.chain_conv(x3, wb, bb, **kw),
+                          rblock_kernel.chain_conv_plain(x3, wb, bb, **kw)):
+            assert rel(g, ref) <= 1e-4
+        assert rel(conv_kernel.conv3x3(x3[None], wb, bb, relu=True),
+                   conv_kernel.conv3x3_plain(x3[None], wb, bb, True)) <= 1e-4
+        assert [k.routes.get("fav_conv3x3_f32", 0) for k in kernels] == [n + 1 for n in before]
         before = [k.routes.get("fav_conv_tc", 0) for k in kernels]
         for g, ref in zip(rblock_kernel.chain_conv(xb, wb, bb),
                           rblock_kernel.chain_conv_plain(xb, wb, bb)):
@@ -402,9 +434,72 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                         # bfloat16 outside K4's widths
         conv_kernel.conv3x3(torch.zeros(2, 8, 8, 96, device=cuda, dtype=torch.bfloat16),
                             torch.zeros(128, 96, 3, 3, device=cuda), b4)
+    with pytest.raises(ValueError):                         # float32 outside K4's widths
+        conv_kernel.conv3x3(torch.zeros(2, 8, 8, 12, device=cuda),
+                            torch.zeros(128, 12, 3, 3, device=cuda), b4)
     with pytest.raises(ValueError):                         # not contiguous NHWC
         conv_kernel.conv3x3(x4.permute(0, 2, 1, 3), w4, b4)
     with pytest.raises(ValueError):                         # a 5x5 kernel
         conv_kernel.conv3x3_valid(x4, torch.zeros(128, 128, 5, 5, device=cuda), b4)
     with pytest.raises(ValueError):                         # weights on the CPU
         conv_kernel.conv3x3(x4, w4.cpu(), b4)
+
+
+def _tree(p, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in p.items()}
+
+
+def _rel(got, want):
+    got, want = got.double().cpu(), want.double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+# float32 against a float64 run of the same function: float32 rounding
+# stays near 1e-6 relative; TF32 (10-bit mantissas) is near 1e-3
+F32_VS_F64 = 1e-5
+
+
+@pytest.fixture
+def tf32_flag_on(cuda):
+    """PyTorch's default for cuDNN convs (allow_tf32 True), restored after."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_float32_stylizer_ignores_the_tf32_flag(tf32_flag_on, monkeypatch):
+    """stylizer.apply in float32 on the plain (cuDNN) path, parameters
+    placed by the port's entry point, with cuDNN's TF32 flag at PyTorch's
+    default: within 1e-5 (relative L2) of a float64 CPU run of the same
+    function, and the flag is left as it was. The same run with the scope
+    taken away (the port before the repair) misses that tolerance."""
+    cuda = tf32_flag_on
+    spec = arch_dsl.parse_arch("c9s1-16,d32,d64,R64,R64,u32,u16,c9s1-3", in_channels=7)
+    params = stylizer.init_params(torch.Generator().manual_seed(0), spec, device=cuda)
+    xn = np.random.default_rng(9).standard_normal((1, 96, 128, 7)) * 60
+    got = stylizer.apply(params, spec, _t(xn, cuda), fused=False)
+    assert torch.backends.cudnn.allow_tf32 is True
+    want = stylizer.apply(_tree(params, lambda t: t.cpu().double()), spec,
+                          torch.from_numpy(xn), fused=False)
+    assert got.dtype == torch.float32
+    assert _rel(got, want) <= F32_VS_F64
+    monkeypatch.setattr(device_mod, "float32_convs", contextlib.nullcontext)
+    tf32 = stylizer.apply(params, spec, _t(xn, cuda), fused=False)
+    assert _rel(tf32, want) > F32_VS_F64
+
+
+def test_float32_flow_pyramid_ignores_the_tf32_flag(tf32_flag_on, monkeypatch):
+    """The flow estimator's convs (the feature pyramid of the bundled
+    weights) in float32 with cuDNN's TF32 flag on, against a float64 CPU
+    run, as above."""
+    cuda = tf32_flag_on
+    params = estimator.load_params("bundled", cuda)
+    img = np.random.default_rng(10).random((1, 96, 128, 3))
+    got = estimator.extract_pyramid(params, _t(img, cuda))
+    want = estimator.extract_pyramid(_tree(params, lambda t: t.cpu().double()),
+                                     torch.from_numpy(img))
+    assert all(_rel(g, w) <= F32_VS_F64 for g, w in zip(got, want))
+    monkeypatch.setattr(device_mod, "float32_convs", contextlib.nullcontext)
+    tf32 = estimator.extract_pyramid(params, _t(img, cuda))
+    assert max(_rel(g, w) for g, w in zip(tf32, want)) > F32_VS_F64
