@@ -17,15 +17,20 @@ Phases (any failure exits non-zero, before the result line is printed):
      the tensor-core route of conv_tc.cu, K3's three layers in bfloat16
      that of front_tc.cu (each no slower than conv2d on events); K2 and K4
      in float32 take the register-tiled CUDA-core kernel conv3x3_f32.cu,
-     K3 in float32 the general template conv_in.cu; each case checks that
-     its launch took the entry that ops/_conv_in.py's conv_route names;
+     K3 in float32 the register-tiled front kernel front_f32.cu; each case
+     checks that its launch took the entry that ops/_conv_in.py's
+     conv_route names. K5 also runs its summing entry: the cross-face blend
+     of six 922-px faces (and a border prior) in one launch, against its
+     plain composition, timed beside the composition the VR driver ran
+     before it (24 single-map launches, rotated copies, torch ops) and
+     beside the same composition over 24 grid_sample calls;
   4. the 2D main path: the streaming stylizer (bundled demo model, bundled
      flow estimator, flow at half resolution) on 12 seeded 1080p pan
      frames, float32 then bfloat16, through the CLI's build functions and
      VideoDriver.run; the launch counters must rise by the expected amount
      per frame, every launch must take the C entry that conv_route names
      for its dtype (bfloat16: K2 and K3 on the tensor cores; float32: K2 on
-     conv3x3_f32.cu, K3 on conv_in.cu), and every output must be finite;
+     conv3x3_f32.cu, K3 on front_f32.cu), and every output must be finite;
      fps with and without PNG encoding, and the device's busy share without
      it (torch.profiler);
   5. the port on the card against the JAX package's committed 2D CLI output
@@ -33,7 +38,9 @@ Phases (any failure exits non-zero, before the result line is printed):
   6. the VR main path: the spherical stylizer on 6 frames of six seeded
      922x922 pan faces (overlap 128), float32 then bfloat16, through
      cli/stylize_vr_video.py's build functions and VRDriver.run, with exact
-     launch counts (and routes, as in phase 4), finite faces, fps with and
+     launch counts (and routes, as in phase 4; K5: one summing launch per
+     border prior and per frame's blend, the single-map entry only for the
+     geometry's four masks), finite faces, fps with and
      without PNG encoding, stage times, the device's busy share
      (torch.profiler), and one face step through the kernels against the
      plain versions;
@@ -66,7 +73,9 @@ under "bfloat16" the same figures of its bfloat16 form: route, source, C
 entry, launches in the bfloat16 run and how many of them took the tensor
 cores; K3's row also lists its three layers under "layers", each with its
 shape and both dtypes' C entry and figures) and {"ok": true, "device":
-{...}}. float32 runs with TF32 off.
+{...}}. K5's summing entry has a row of its own ("strip_warp_sum": the
+cross-face blend, with the times of the composition it replaced and of the
+same composition over grid_sample). float32 runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -97,13 +106,15 @@ TC_KERNELS = ("res_chain_conv", "conv3x3", "front_conv")
 TC_SOURCES = {"fav_conv_tc": "fast_artistic_videos_tpu_torch/csrc/conv_tc.cu",
               "fav_front_tc": "fast_artistic_videos_tpu_torch/csrc/front_tc.cu"}
 SYMBOLS = {"fav_conv_tc": "conv_tc_kernel", "fav_front_tc": "front_tc_kernel",
-           "fav_conv_in": "conv_in_kernel", "fav_conv3x3_f32": "conv3x3_f32_kernel"}
+           "fav_conv_in": "conv_in_kernel", "fav_conv3x3_f32": "conv3x3_f32_kernel",
+           "fav_front_f32": "front_f32_", "fav_strip_warp": "strip_warp_kernel",
+           "fav_strip_warp_sum": "strip_warp_sum_kernel"}
 # the C entry of each kernel by dtype on the stylizer's shapes (K3 and K2 at
 # batch 1, K4 at batch > 1), as ops/_conv_in.py's conv_route names them
 ENTRIES = {"bfloat16": {"res_chain_conv": "fav_conv_tc", "conv3x3": "fav_conv_tc",
                         "front_conv": "fav_front_tc"},
            "float32": {"res_chain_conv": "fav_conv3x3_f32", "conv3x3": "fav_conv3x3_f32",
-                       "front_conv": "fav_conv_in"}}
+                       "front_conv": "fav_front_f32"}}
 
 
 def log(*a):
@@ -223,6 +234,23 @@ def _profile_ms(torch, fn, name, n=20, tries=3):
         if count:
             return ms / count
     raise RuntimeError(f"profiler kept no record of {name} in {tries} profiles")
+
+
+def _profile_total_ms(torch, fn, n=20, tries=3):
+    """The device time of every kernel that one call of fn launches (ms):
+    torch.profiler over n calls, summed and divided by n; retaken, up to
+    `tries` profiles in all, when it kept no record, then raises."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ms, count = _device_events(prof)
+        if count:
+            return ms / n
+    raise RuntimeError(f"profiler kept no record in {tries} profiles")
 
 
 def sass_mma_counts(lib_path):
@@ -381,6 +409,7 @@ def check_kernels(torch):
         conv_case(K2, 288, 498, 128, 128, 3, 1, 0, True, True, False, False, dtype)
         conv_case(K2, 282, 492, 128, 128, 3, 1, 0, True, False, True, True, dtype)
     res["strip_warp"] = check_strip_warp(torch, g)
+    res["strip_warp_sum"] = check_strip_sum(torch, g)
     res["conv3x3"] = check_block_conv(torch, g)
     return res
 
@@ -436,11 +465,134 @@ def check_block_conv(torch, g):
     return out
 
 
+def _footprint(m, box, f):
+    """Pixels of the source box that a border map's taps touch inside an
+    f x f image."""
+    import numpy as np
+
+    y0, y1, x0, x1 = box
+    yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float64)
+    sub = m[y0:y1, x0:x1].astype(np.float64)
+    ok = np.all(np.abs(sub) < 9999.0 / 2, axis=-1)
+    sy, sx = np.floor((yy + sub[..., 1])[ok]), np.floor((xx + sub[..., 0])[ok])
+    rows = min(sy.max() + 2, f) - max(sy.min(), 0)
+    cols = min(sx.max() + 2, f) - max(sx.min(), 0)
+    return int(rows * cols)
+
+
+def _strip_grid(torch, m, box, f):
+    """grid_sample's grid over a border map's box in an f x f image: the
+    normalized absolute source coordinates, far outside for unmapped
+    pixels."""
+    import numpy as np
+
+    y0, y1, x0, x1 = box
+    yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float64)
+    sub = m[y0:y1, x0:x1].astype(np.float64)
+    ok = np.all(np.abs(sub) < 9999.0 / 2, axis=-1)
+    gx = np.where(ok, (xx + sub[..., 0]) * 2 / (f - 1) - 1, -10.0)
+    gy = np.where(ok, (yy + sub[..., 1]) * 2 / (f - 1) - 1, -10.0)
+    return torch.from_numpy(np.stack([gx, gy], -1)[None].astype(np.float32)).cuda()
+
+
+def _grid_sample_warp(torch, m, box, f):
+    """The exact warp of a border map by grid_sample over its box (bilinear,
+    zero padding, align_corners), the rest of the (f, f, 3) frame zero."""
+    y0, y1, x0, x1 = box
+    grid = _strip_grid(torch, m, box, f)
+
+    def warp(img):
+        out = torch.zeros((f, f, img.shape[-1]), device="cuda")
+        out[y0:y1, x0:x1] = torch.nn.functional.grid_sample(
+            img.float().permute(2, 0, 1)[None], grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)[0].permute(1, 2, 0)
+        return out
+    return warp
+
+
+def check_strip_sum(torch, g):
+    """K5's summing entry at 922-px faces (overlap 128), float32 and
+    bfloat16 faces: the cross-face blend of all six faces in one launch
+    (the VR path's per-frame shape) and the border prior of position 4,
+    against their plain composition (max-abs 1e-5). Beside the kernel: the
+    composition the VR driver ran before the summing entry (24 or 4
+    single-map K5 launches, rotated copies, torch adds and divides), and
+    the same composition over grid_sample warps (the library yardstick),
+    each on CUDA events and as device time (every kernel of a call)."""
+    from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel as swk
+    from fast_artistic_videos_tpu_torch.video import driver_vr
+
+    f = VR_FACE
+    opt = driver_vr.VROptions(overlap_pixel_w=VR_OVERLAP, overlap_pixel_h=VR_OVERLAP)
+    geo = driver_vr._Geometry(f, f, opt, torch.device("cuda"))
+    sums = geo.borders
+    if not isinstance(sums, swk.StripSet):
+        raise AssertionError("K5 sum: a 922-px border map has no strip warp")
+    maps = (geo.map_left, geo.map_right, geo.map_top, geo.map_bottom)
+    before = swk.BorderSums(*sums.warps)        # one single-map launch per term
+    library = swk.BorderSums(*(_grid_sample_warp(torch, m, wp.box, f)
+                               for m, wp in zip(maps, sums.warps)))
+    footprint = [_footprint(m, wp.box, f) for m, wp in zip(maps, sums.warps)]
+    tables = sum(sum(t.numel() * 4 for t in wp.tables(torch.device("cuda")))
+                 for wp in sums.warps)
+    gm, div = geo.grad_all, geo.mask_all_div
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        faces = [torch.rand((f, f, 3), generator=g).to("cuda", dtype) for _ in range(6)]
+        esz = faces[0].element_size()
+        for case in ("blend", 4):
+            if case == "blend":
+                def call(o, _fn="blend"):
+                    return getattr(o, _fn)(faces, gm, div)
+                terms = swk.BLEND_TERMS
+                # every face read once (the taps lie in them), gm and div,
+                # the tables, the six blended faces written once
+                nbytes = 6 * f * f * 3 * (esz + 4) + 2 * f * f * 4 + tables
+            else:
+                def call(o, _fn="prior"):
+                    return [getattr(o, _fn)(case, faces[:4], div)]
+                terms = (swk.PRIOR_TERMS[case],)
+                # the strips the taps touch, div, the tables, the prior
+                nbytes = (sum(footprint[m] for m, _, _ in terms[0]) * 3 * esz
+                          + f * f * 4 * (1 + 3) + tables)
+            flops = sum(12 * 3 * (sums.warps[m].box[1] - sums.warps[m].box[0])
+                        * (sums.warps[m].box[3] - sums.warps[m].box[2])
+                        for t in terms for m, _, _ in t) + len(terms) * f * f * 3 * 4
+            got = call(sums)
+            want = call(sums, "blend_plain" if case == "blend" else "prior_plain")
+            lib_out = call(library)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            lib_err = max((a - b).abs().max().item() for a, b in zip(lib_out, want))
+            ms = _time_ms(torch, lambda: call(sums))
+            dev_ms = _profile_ms(torch, lambda: call(sums), SYMBOLS["fav_strip_warp_sum"])
+            plain_ms = _time_ms(torch, lambda: call(
+                sums, "blend_plain" if case == "blend" else "prior_plain"))
+            before_ms = _time_ms(torch, lambda: call(before))
+            before_dev = _profile_total_ms(torch, lambda: call(before))
+            lib_ms = _time_ms(torch, lambda: call(library))
+            lib_dev = _profile_total_ms(torch, lambda: call(library))
+            b_ms, b_by = bound(nbytes, flops, "float32")
+            name = "blend (6 faces)" if case == "blend" else f"prior position {case}"
+            log(f"K5 strip warp sum, {name}, {f}x{f}x3 {dtype} faces: max_abs_err {err:.3g} "
+                f"(tol 1e-5) kernel {ms:.4f} ms (device {dev_ms:.4f} ms, profiler) plain "
+                f"{plain_ms:.4f} ms; before the summing entry {before_ms:.4f} ms (device "
+                f"{before_dev:.4f} ms, {sum(len(t) for t in terms)} single-map launches + "
+                f"torch ops); over grid_sample {lib_ms:.4f} ms (device {lib_dev:.4f} ms; vs "
+                f"plain {lib_err:.3g}) bound {b_ms:.4f} ms ({b_by})")
+            if not err <= 1e-5:
+                raise AssertionError(f"K5 sum {name} {dtype}: err {err}")
+            out.append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                            entry="fav_strip_warp_sum", case=name, before_ms=before_ms,
+                            before_device_ms=before_dev, library_device_ms=lib_dev))
+    return out
+
+
 def check_strip_warp(torch, g):
     """K5 on the four 922-px border maps (overlap 128), C = 3, float32 and
     bfloat16 input, against its plain version; the library yardstick is
     grid_sample over the strip (bilinear, zero padding, align_corners)."""
-    import numpy as np
     from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
     from fast_artistic_videos_tpu_torch.video import vr_geometry as vr
 
@@ -462,12 +614,7 @@ def check_strip_warp(torch, g):
             plain_ms = _time_ms(torch, lambda: fn.plain(img))
             # grid_sample over the strip: normalized absolute source coords
             y0, y1, x0, x1 = fn.box
-            yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float64)
-            sub = m[y0:y1, x0:x1].astype(np.float64)
-            ok = np.all(np.abs(sub) < 9999.0 / 2, axis=-1)
-            gx = np.where(ok, (xx + sub[..., 0]) * 2 / (f - 1) - 1, -10.0)
-            gy = np.where(ok, (yy + sub[..., 1]) * 2 / (f - 1) - 1, -10.0)
-            grid = torch.from_numpy(np.stack([gx, gy], -1)[None].astype(np.float32)).cuda()
+            grid = _strip_grid(torch, m, fn.box, f)
             src = img.float().permute(2, 0, 1)[None]
 
             def lib():
@@ -481,10 +628,8 @@ def check_strip_warp(torch, g):
             # the least bytes: the source box the taps touch (inside the
             # image), read once, and the output frame written once; 6
             # multiply-adds per element
-            sy, sx = np.floor((yy + sub[..., 1])[ok]), np.floor((xx + sub[..., 0])[ok])
-            rows = min(sy.max() + 2, f) - max(sy.min(), 0)
-            cols = min(sx.max() + 2, f) - max(sx.min(), 0)
-            b_ms, b_by = bound(rows * cols * 3 * img.element_size() + got.numel() * 4,
+            b_ms, b_by = bound(_footprint(m, fn.box, f) * 3 * img.element_size()
+                               + got.numel() * 4,
                                12 * (y1 - y0) * (x1 - x0) * 3, _dname(torch, dtype))
             log(f"K5 strip warp {name} {f}x{f}x3 {dtype}: max_abs_err {err:.3g} (tol 1e-5) "
                 f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, profiler) plain "
@@ -726,12 +871,14 @@ def run_vr_path(torch, workdir):
             io.write_ppm(os.path.join(d, f"f{t:04d}_{k}.ppm"), img)
     pattern = os.path.join(d, "f%04d_%d.ppm")
     n = VR_FRAMES
-    # per frame: K5 12 border-prior warps + 24 blend warps (+ 4 mask warps
-    # when the geometry is built); per face: K3 3 and K2 10 launches; per
-    # frame after the first: K1 6 temporal warps, 6 feature warps (3 pyramid
-    # levels x 2 directions, the 6 faces batched) and 6 consistency samples
-    expect = {"strip_warp": 36 * n + 4, "front_conv": 18 * n, "res_chain_conv": 60 * n,
+    # per frame: K5 5 border priors + 1 cross-face blend, each one launch of
+    # the summing entry (+ 4 single-map mask warps when the geometry is
+    # built); per face: K3 3 and K2 10 launches; per frame after the first:
+    # K1 6 temporal warps, 6 feature warps (3 pyramid levels x 2
+    # directions, the 6 faces batched) and 6 consistency samples
+    expect = {"strip_warp": 6 * n + 4, "front_conv": 18 * n, "res_chain_conv": 60 * n,
               "warp_banded": 18 * (n - 1), "conv3x3": 0}
+    expect_k5 = {"fav_strip_warp": 4, "fav_strip_warp_sum": 6 * n}
     counted, routes, fps = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         prefix = os.path.join(d, dtype, "o")
@@ -747,6 +894,12 @@ def run_vr_path(torch, workdir):
             raise AssertionError(f"VR path {dtype}: {faces_done} faces, "
                                  f"launches {launches} != {expect}")
         routes[dtype] = _check_routes(kernels, launches, dtype, "VR path")
+        k5 = dict(kernels["strip_warp"].routes)
+        log(f"VR path {dtype}: K5 launches by C entry {k5}, expected {expect_k5}")
+        if k5 != expect_k5:
+            raise AssertionError(f"VR path {dtype}: K5 launches by C entry {k5} != {expect_k5}")
+        launches["strip_warp"], launches["strip_warp_sum"] = (k5["fav_strip_warp"],
+                                                              k5["fav_strip_warp_sum"])
         if len(outs) != 6 * n:
             raise AssertionError(f"VR path {dtype}: {len(outs)} stylized faces")
         for o in outs:
@@ -771,13 +924,13 @@ def run_vr_path(torch, workdir):
 
 def vr_stage_times(torch, faces):
     """Per-frame device time of the VR stages (CUDA events, median of 8): the
-    batched flow step, one face step (position 4: four border warps, the
+    batched flow step, one face step (position 4: its border prior, the
     temporal warp, the stylizer), and the blend plus the outputs. Then that
-    face step through the kernels against the plain versions (K5, K1 and the
-    cuDNN stylizer) on the same input: float32 max-abs <= 1e-3, bfloat16
-    mean-abs <= 1e-2, on the [0, 1] output."""
+    face step through the kernels against the plain versions (K5's plain
+    composition, K1 and the cuDNN stylizer) on the same input: float32
+    max-abs <= 1e-3, bfloat16 mean-abs <= 1e-2, on the [0, 1] output."""
     from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
-    from fast_artistic_videos_tpu_torch.ops import warp_kernel
+    from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel, warp_kernel
 
     dev = torch.device("cuda")
     spec = checkpoint.load_model("demo")[0]
@@ -802,16 +955,16 @@ def vr_stage_times(torch, faces):
         got = driver._face_step(i, img)
         # the same step through the plain versions on the card
         g = driver.geo
-        kernel_warps = (g.warp_left, g.warp_right, g.warp_top, g.warp_bottom)
+        kernel_borders = g.borders
         apply_vid = driver.engine.apply_vid
         banded = warp_kernel.warp_banded
-        g.warp_left, g.warp_right, g.warp_top, g.warp_bottom = (w.plain for w in kernel_warps)
+        g.borders = strip_warp_kernel.BorderSums(*kernel_borders.plain_warps)
         driver.engine.apply_vid = lambda p, x: stylizer.apply(p, spec, x, fused=False)
         warp_kernel.warp_banded = warp_kernel.warp_banded_plain
         try:
             want = driver._face_step(i, img)
         finally:
-            g.warp_left, g.warp_right, g.warp_top, g.warp_bottom = kernel_warps
+            g.borders = kernel_borders
             driver.engine.apply_vid = apply_vid
             warp_kernel.warp_banded = banded
         diff = (got - want).abs()
@@ -1100,27 +1253,36 @@ def main() -> int:
                 "library_ms": c["library_ms"]}
 
     kernels = _kernels()
-    for name, launches, tc in (("warp_banded", counted, routes),
-                               ("res_chain_conv", counted, routes),
-                               ("front_conv", counted, routes),
-                               ("conv3x3", b_counted, b_routes),
-                               ("strip_warp", vr_counted, vr_routes)):
-        k = kernels[name]
-        cases = res[k.name]
+    # (row, kernel): K5's two C entries get a row each, launches by entry
+    for name, kname, launches, tc in (("warp_banded", "warp_banded", counted, routes),
+                                      ("res_chain_conv", "res_chain_conv", counted, routes),
+                                      ("front_conv", "front_conv", counted, routes),
+                                      ("conv3x3", "conv3x3", b_counted, b_routes),
+                                      ("strip_warp", "strip_warp", vr_counted, vr_routes),
+                                      ("strip_warp_sum", "strip_warp", vr_counted, vr_routes)):
+        k = kernels[kname]
+        cases = res[name]
         # the first case of each dtype is the main path's shape
         first = next(c for c in cases if c["dtype"] == torch.float32)
         bf = next(c for c in cases if c["dtype"] == torch.bfloat16)
-        n_bf = launches["bfloat16"][k.name]
-        row = {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-               "entry": first["entry"], "launches": launches["float32"][k.name],
+        n_bf = launches["bfloat16"][name]
+        row = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+               "entry": first["entry"], "launches": launches["float32"][name],
                "max_abs_err": max(c["err"] for c in cases if c["dtype"] == torch.float32),
                **figures(first),
                "bfloat16": {"route": "cuda", "source": TC_SOURCES.get(bf["entry"], k.source),
                             "entry": bf["entry"], "launches": n_bf,
-                            "tensor_core_launches": tc["bfloat16"][k.name],
+                            "tensor_core_launches": tc["bfloat16"].get(name, 0),
                             "max_abs_err": max(c["err"] for c in cases
                                                if c["dtype"] == torch.bfloat16),
                             **figures(bf)}}
+        if name == "strip_warp_sum":
+            # the blend beside the composition it replaced and the same
+            # composition over grid_sample, both dtypes of the faces
+            for c, d in ((first, row), (bf, row["bfloat16"])):
+                d.update(case=c["case"], before_ms=c["before_ms"],
+                         before_device_ms=c["before_device_ms"],
+                         library_device_ms=c["library_device_ms"])
         if name == "front_conv":
             # K3's three layers, each in both dtypes (its first three cases
             # per dtype are layers 0, 1 and 2 of the main path)

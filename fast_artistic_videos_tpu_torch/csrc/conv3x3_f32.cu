@@ -13,7 +13,7 @@
 //     the loads) or VALID, bias, optional ReLU epilogue, the whole batch in
 //     one launch.
 // Bfloat16 K2/K4 run on the tensor cores (conv_tc.cu); the float32 front
-// (K3: 9x9, stride 2) and other widths stay on conv_in.cu.
+// (K3: 9x9, stride 2) runs in front_f32.cu, other widths on conv_in.cu.
 //
 // Semantics are those of conv_in.cu: the prologue's multiply, add and skip
 // add are separate float32 operations (__fmul_rn / __fadd_rn), as PyTorch

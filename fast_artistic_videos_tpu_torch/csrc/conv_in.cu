@@ -3,10 +3,11 @@
 // Replaces, with one template, the Pallas kernels of every conv shape that
 // no specialised kernel takes:
 //   * fast_artistic_videos_tpu/ops/front_pallas.py `_kernel` (pallas_call in
-//     `_same_conv`) — the stylizer front, layers 0-2 (K3): (9, 9, 1, 4) for
-//     7 -> 32, then (3, 3, 2, 1) for 32 -> 64 and 64 -> 128, in float32 (the
-//     bfloat16 front runs in front_tc.cu). The TPU runs these in a 16-phase
-//     space-to-depth layout to feed its 128-lane MXU; here they run directly
+//     `_same_conv`) — the stylizer front (K3) at the shapes that neither
+//     front_f32.cu (float32 9x9 at Cin <= 8, Cout % 32; 3x3 stride 2 at Cin
+//     % 8, Cout % 64: the stylizer's layers 0-2) nor front_tc.cu (the same
+//     families in bfloat16) takes. The TPU runs the front in a 16-phase
+//     space-to-depth layout to feed its 128-lane MXU; here it runs directly
 //     on the logical NHWC grid;
 //   * fast_artistic_videos_tpu/ops/rblock_pallas.py `_kernel` (pallas_call
 //     in `_chain_conv`) — the residual chain's VALID 3x3 convs (K2), (kh,
@@ -31,9 +32,9 @@
 // or bf16 storage, f32 accumulation. Which configurations run here is the
 // rule of ops/_conv_in.py `conv_route`.
 //
-// What bounds it on the H100: CUDA-core FMAs. At f32 layer 0 is 84.2 GFLOP
-// at 1080p; no tensor cores are used here, so the roofline is the 67
-// TFLOP/s f32 FMA rate (float32 runs with TF32 off), not memory. Design: a
+// What bounds it on the H100: CUDA-core FMAs (a front layer 0 of 84.2 GFLOP
+// at 1080p, had it run here); no tensor cores are used here, so the
+// roofline is the 67 TFLOP/s f32 FMA rate (float32 runs with TF32 off). Design: a
 // block owns a 16 x 16 output tile x 32 output channels; the input halo
 // (with the prologue applied once per element) and the weight slice for a
 // chunk of input channels are staged in shared memory as f32; each of the

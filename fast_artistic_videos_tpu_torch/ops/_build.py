@@ -5,10 +5,17 @@ library with a plain C interface, loaded through ``ctypes`` — no PyTorch
 headers, so a build takes seconds. The build runs at first use (never at
 import) into ``fast_artistic_videos_tpu_torch/_build/``; the library's file
 name carries a hash of the sources, so an edited source rebuilds and a stale
-library is never loaded. Pointers and the stream go to C as ``c_void_p``;
-:meth:`Kernel.call` makes the tensors' device current for the launch and
-appends that device's current stream; every C entry returns
-``cudaGetLastError()`` and :meth:`Kernel.call` raises when it is not 0.
+library is never loaded. Pointers and the stream go to C as ``c_void_p``
+(passed as Python ints); :meth:`Kernel.call` makes the tensors' device
+current for the launch when it is not, and appends that device's current
+stream; every C entry returns ``cudaGetLastError()`` and :meth:`Kernel.call`
+raises when it is not 0.
+
+The launch path does no work that a launch does not need: each C function
+is resolved once per process (:meth:`Library.entry`, no lock after the
+first call), the device is switched only when the tensors' card is not the
+thread's current one, and the stream's raw handle is read without building
+a ``torch.cuda.Stream`` object.
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ SIGNATURES = {
     "fav_conv_in": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "fav_conv3x3_f32": [_P] * 8 + [_I] * 8 + [_P],
     "fav_strip_warp": [_P] * 6 + [_I] * 12 + [_P],
+    "fav_strip_warp_sum": [_P, _P],
     "fav_conv_tc": [_P] * 8 + [_I] * 8 + [_P],
     "fav_front_tc": [_P] * 6 + [_I] * 8 + [_P],
+    "fav_front_f32": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 
@@ -50,6 +59,7 @@ class Library:
     def __init__(self):
         self._lock = threading.Lock()
         self._lib = None
+        self._entries = {}
         self.build_seconds = None
         self.build_log = ""
 
@@ -73,6 +83,15 @@ class Library:
             if self._lib is None:
                 self._lib = self._load(verbose)
             return self._lib
+
+    def entry(self, name: str):
+        """The C function `name` (the library is built or loaded on the
+        first call); resolved once, then read without a lock."""
+        fn = self._entries.get(name)
+        if fn is None:
+            fn = getattr(self.get(), name)
+            self._entries[name] = fn
+        return fn
 
     def _load(self, verbose: bool):
         out = self.path()
@@ -116,13 +135,19 @@ def _find_nvcc() -> str:
 LIBRARY = Library()
 
 
+def _raw_stream(index: int) -> int:
+    """The cudaStream_t of card `index`'s current stream, as an int."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 class Kernel:
     """One kernel's launch counters plus the error check of its C entry.
 
     ``launches`` rises by one each time the wrapper launches the kernel and
     at no other time; ``routes[entry]`` counts the same launches by the C
     entry that took them (K2 and K4 have a float32 and a tensor-core
-    route, K2 and K3 also the general template). :meth:`reset` sets both to 0."""
+    route, K2 and K3 also the general template, K5 a single-map and a
+    summing entry). :meth:`reset` sets both to 0."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
@@ -137,21 +162,26 @@ class Kernel:
             self.launches = 0
             self.routes = {}
 
-    def call(self, entry: str, device: torch.device, *args):
-        """Launch C entry `entry` on `device`, which is made current for the
-        call (a tensor on cuda:N launches on card N, from any thread), on
-        that device's current stream, appended to `args`."""
-        fn = getattr(LIBRARY.get(), entry)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(*args, ctypes.c_void_p(stream))
+    def call(self, name: str, device: torch.device, *args):
+        """Launch C entry `name` on `device` (a tensor on cuda:N launches on
+        card N, from any thread: the card is made current for the call when
+        it is not), on that card's current stream, appended to `args`."""
+        fn = LIBRARY.entry(name)
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            err = fn(*args, _raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, _raw_stream(index))
         if err != 0:
-            raise RuntimeError(f"CUDA kernel {self.name} ({entry}) failed: "
+            raise RuntimeError(f"CUDA kernel {self.name} ({name}) failed: "
                                f"cudaError {err}")
         with self._count_lock:
             self.launches += 1
-            self.routes[entry] = self.routes.get(entry, 0) + 1
+            self.routes[name] = self.routes.get(name, 0) + 1
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)
+def ptr(t):
+    """A tensor's data pointer for a ``c_void_p`` argument (None: NULL)."""
+    return t.data_ptr() if t is not None else None

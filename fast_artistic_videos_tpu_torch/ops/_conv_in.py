@@ -1,5 +1,6 @@
 """The instance-norm conv shared by kernels K2 (``rblock_kernel``) and K3
-(``front_kernel``): wrapper of ``csrc/conv_in.cu`` and ``csrc/conv_tc.cu``
+(``front_kernel``): wrapper of ``csrc/conv_in.cu``, ``csrc/conv_tc.cu``,
+``csrc/front_tc.cu``, ``csrc/conv3x3_f32.cu`` and ``csrc/front_f32.cu``,
 and its plain version.
 
     a = [+ skip[+2, +2]] ( [relu] ( eff[0] * x + eff[1] ) )   (prologue)
@@ -24,7 +25,11 @@ Cout % 64 == 0, layers 1 and 2) launch the tensor-core kernel
 1, Cin % 8 == 0 and Cout % 128 == 0 (every K2 and K4 conv of the
 stylizer) launch the register-tiled CUDA-core kernel ``conv3x3_f32.cu``
 (entry ``fav_conv3x3_f32``, weights packed by
-:func:`pack_conv3x3_f32_weights`). Every other shape launches the general
+:func:`pack_conv3x3_f32_weights`), and the front's shapes (9x9 stride 1
+pad 4 with Cin <= 8 and Cout % 32 == 0; 3x3 stride 2 pad 1 with Cin % 8 ==
+0 and Cout % 64 == 0) the register-tiled CUDA-core kernel ``front_f32.cu``
+(entry ``fav_front_f32``, weights packed by
+:func:`pack_front_f32_weights`). Every other shape launches the general
 CUDA-core template ``conv_in.cu`` (``fav_conv_in``). Every route raises on
 a failed launch; none falls back to another.
 """
@@ -40,6 +45,7 @@ TC_ENTRY = "fav_conv_tc"
 FRONT_TC_ENTRY = "fav_front_tc"
 TC_ENTRIES = (TC_ENTRY, FRONT_TC_ENTRY)
 F32_ENTRY = "fav_conv3x3_f32"
+FRONT_F32_ENTRY = "fav_front_f32"
 GENERAL_ENTRY = "fav_conv_in"
 
 
@@ -63,15 +69,22 @@ def tensor_core_route(dtype, kh: int, kw: int, stride: int, pad: int, cin: int,
 
 def conv_route(dtype, kh: int, kw: int, stride: int, pad: int, cin: int, cout: int) -> str:
     """The C entry a conv launches: the tensor-core entry that
-    :func:`tensor_core_route` names in bfloat16; ``fav_conv3x3_f32`` for a
-    float32 3x3, stride 1, pad 0 or 1 conv with Cin % 8 == 0 and Cout % 128
-    == 0; ``fav_conv_in`` otherwise."""
+    :func:`tensor_core_route` names in bfloat16; in float32,
+    ``fav_conv3x3_f32`` for a 3x3, stride 1, pad 0 or 1 conv with Cin % 8
+    == 0 and Cout % 128 == 0, and ``fav_front_f32`` for a 9x9, stride 1,
+    pad 4 conv with Cin <= 8 and Cout % 32 == 0 or a 3x3, stride 2, pad 1
+    conv with Cin % 8 == 0 and Cout % 64 == 0; ``fav_conv_in`` otherwise."""
     tc = tensor_core_route(dtype, kh, kw, stride, pad, cin, cout)
     if tc is not None:
         return tc
-    if (dtype == torch.float32 and kh == kw == 3 and stride == 1 and pad in (0, 1)
-            and cin % 8 == 0 and cout % 128 == 0):
+    if dtype != torch.float32 or kh != kw:
+        return GENERAL_ENTRY
+    if kh == 3 and stride == 1 and pad in (0, 1) and cin % 8 == 0 and cout % 128 == 0:
         return F32_ENTRY
+    if kh == 9 and stride == 1 and pad == 4 and cin <= 8 and cout % 32 == 0:
+        return FRONT_F32_ENTRY
+    if kh == 3 and stride == 2 and pad == 1 and cin % 8 == 0 and cout % 64 == 0:
+        return FRONT_F32_ENTRY
     return GENERAL_ENTRY
 
 
@@ -108,6 +121,18 @@ def pack_conv3x3_f32_weights(w):
     return w.float().permute(1, 2, 3, 0).contiguous()
 
 
+def pack_front_f32_weights(w):
+    """OIHW weights -> the float32 layout that ``front_f32.cu`` reads: a
+    9x9 kernel as (9, 9, 8, Cout), the input channels padded to 8 with zero
+    weights, so that one kernel row is 72 rows ([tap][channel]) of
+    contiguous Cout; a 3x3 kernel as (Cin, 3, 3, Cout), the layout of
+    :func:`pack_conv3x3_f32_weights`."""
+    if w.shape[2] == 3:
+        return pack_conv3x3_f32_weights(w)
+    wt = w.float().permute(2, 3, 1, 0)                           # (KH, KW, Cin, Cout)
+    return F.pad(wt, (0, 0, 0, 8 - w.shape[1])).contiguous()
+
+
 def _packed(w, attr: str, pack):
     """pack(w), kept on the tensor until it is modified in place (its
     version changes): the stylizer's weights are packed once, not on every
@@ -125,6 +150,10 @@ def _front_weights(w):
 
 def _f32_weights(w):
     return _packed(w, "_conv3x3_f32_pack", pack_conv3x3_f32_weights)
+
+
+def _front_f32_weights(w):
+    return _packed(w, "_front_f32_pack", pack_front_f32_weights)
 
 
 def _tc_weights(w):
@@ -184,7 +213,7 @@ def conv_in_plain(x, w, b, *, stride: int, pad: int, eff=None, relu: bool = Fals
 def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
             relu: bool = False, skip=None, emit_input: bool = False):
     """Launch `kernel` (K2 or K3) on a CUDA tensor, on the route that
-    :func:`conv_route` names (the front's route takes no skip and no
+    :func:`conv_route` names (the front's routes take no skip and no
     emission); plain version on CPU. Returns (y,
     stats) or (y, stats, a) with emit_input."""
     if x.device.type == "cpu":
@@ -236,6 +265,17 @@ def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
         kernel.call(FRONT_TC_ENTRY, x.device, ptr(x), ptr(_front_weights(w)), ptr(bt),
                     ptr(effc), ptr(y), ptr(stats), hin, win, cin, cout, kh, stride, pad,
                     int(relu))
+        return y, stats
+    if route == FRONT_F32_ENTRY:
+        if skip is not None or emit_input:
+            raise ValueError(f"{kernel.name}: the front's float32 route takes no skip "
+                             f"and emits no input")
+        wt = _front_f32_weights(w)
+        if y.data_ptr() % 16 or wt.data_ptr() % 16:
+            raise ValueError(f"{kernel.name}: {FRONT_F32_ENTRY} needs 16-byte aligned "
+                             f"weights and output")
+        kernel.call(FRONT_F32_ENTRY, x.device, ptr(x), ptr(wt), ptr(bt), ptr(effc), ptr(y),
+                    ptr(stats), hin, win, cin, cout, kh, stride, pad, int(relu))
         return y, stats
     wt = w.to(dtype).permute(2, 3, 1, 0).contiguous()          # HWIO
     kernel.call(GENERAL_ENTRY, x.device, ptr(x), ptr(wt), ptr(bt), ptr(effc),

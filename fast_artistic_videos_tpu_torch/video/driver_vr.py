@@ -22,7 +22,10 @@ The border maps are static, so each gets a strip warp from a factory built
 once per face size: kernel K5 (``ops.strip_warp_kernel``) on a CUDA tensor,
 its plain version on a CPU tensor, and the exact strip gather
 (``ops.warp.make_static_warp``) where a map is not separable or
-``pallas_strip_warp`` is False. The temporal warp is the banded warp (K1 on
+``pallas_strip_warp`` is False. With all four maps on K5, each border prior
+and each frame's cross-face blend is one launch of K5's summing entry
+(``strip_warp_kernel.StripSet``); otherwise the same sums are composed
+from the four warps (``strip_warp_kernel.BorderSums``). The temporal warp is the banded warp (K1 on
 a card) with the flow provider's band. Every face step is the same plain
 function (``_face_step``) for streamed and file-pattern flow; all tensors
 of a frame stay on the engine's device, and only the uint8 outputs come
@@ -90,6 +93,12 @@ class _Geometry:
         self.warp_right = static(self.map_right)
         self.warp_top = static(self.map_top)
         self.warp_bottom = static(self.map_bottom)
+        warps = (self.warp_left, self.warp_right, self.warp_top, self.warp_bottom)
+        # the border priors and the cross-face blend, one K5 launch each
+        # when every map has a strip warp
+        self.borders = (strip_warp_kernel.StripSet(*warps)
+                        if all(isinstance(w, strip_warp_kernel.StripWarp) for w in warps)
+                        else strip_warp_kernel.BorderSums(*warps))
 
         ones = torch.ones((hplus, wplus, 1), device=device)
         self.mask_left = self.warp_left(ones)[..., 0]
@@ -261,22 +270,7 @@ class VRDriver:
         """The border prior of a position from the faces of this frame
         already stylized (zeros for the others)."""
         g = self.geo
-        zero = torch.zeros((g.hplus, g.wplus, 3), device=self.device)
-        s0, s1, s2, s3 = [s if s is not None else zero for s in self.segments[:4]]
-        wl, wr, wt, wb = g.warp_left, g.warp_right, g.warp_top, g.warp_bottom
-        div = g.mask_all_div[..., None]
-        r90, rm90, r180 = vr.rotate90, vr.rotate_minus90, vr.rotate180
-        if pos == 1:
-            return wl(s0)
-        if pos == 2:
-            return wr(s0)
-        if pos == 3:
-            return wl(s1) + wr(s2)
-        if pos == 4:
-            return (wl(r90(s1)) / div + wr(rm90(s2)) / div
-                    + wt(s3) / div + wb(r180(s0)) / div)
-        return (wl(rm90(s1)) / div + wr(r90(s2)) / div
-                + wt(r180(s0)) / div + wb(s3) / div)
+        return g.borders.prior(pos, self.segments[:4], g.mask_all_div)
 
     def _temporal_blend(self, pos: int, band, prev_seg, flow, border, cert_eroded):
         """The previous blended face warped by the flow (banded warp, band
@@ -323,26 +317,9 @@ class VRDriver:
 
     def blend_other_sides(self) -> List[torch.Tensor]:
         """The cross-face blend after a full frame (:454-509): 24 border
-        warps, one call each."""
+        warps, one K5 launch in all when every map has a strip warp."""
         g = self.geo
-        s = self.segments
-        gm = g.grad_all[..., None]
-        div = g.mask_all_div[..., None]
-        wl, wr, wt, wb = g.warp_left, g.warp_right, g.warp_top, g.warp_bottom
-        r90, rm90, r180 = vr.rotate90, vr.rotate_minus90, vr.rotate180
-
-        def combine(a, b, c, d):
-            return (a + b + c + d) / div
-
-        borders = [
-            combine(wr(s[1]), wl(s[2]), wb(r180(s[4])), wt(r180(s[5]))),
-            combine(wl(s[0]), wr(s[3]), wb(rm90(s[4])), wt(r90(s[5]))),
-            combine(wr(s[0]), wl(s[3]), wb(r90(s[4])), wt(rm90(s[5]))),
-            combine(wl(s[1]), wr(s[2]), wb(s[4]), wt(s[5])),
-            combine(wb(r180(s[0])), wl(r90(s[1])), wr(rm90(s[2])), wt(s[3])),
-            combine(wt(r180(s[0])), wl(rm90(s[1])), wr(r90(s[2])), wb(s[3])),
-        ]
-        return [s[p] * (1 - gm) + borders[p] * gm for p in range(6)]
+        return g.borders.blend(self.segments, g.grad_all, g.mask_all_div)
 
     def _outputs(self, segments):
         """uint8 faces, and the median-filtered equirectangular and cubemap

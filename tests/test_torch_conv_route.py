@@ -11,7 +11,11 @@ tensor-core entry (None). ``ops/_conv_in.conv_route`` names every C entry:
 the tensor-core one where there is one, ``fav_conv3x3_f32``
 (``csrc/conv3x3_f32.cu``) for float32 3x3 stride-1 convs with pad 0 or 1,
 Cin % 8 == 0 and Cout % 128 == 0 (every float32 K2 and K4 conv of the
-stylizer), and ``fav_conv_in`` (``csrc/conv_in.cu``) for the rest. The C
+stylizer), ``fav_front_f32`` (``csrc/front_f32.cu``) for the float32
+front's shapes (9x9 stride 1 pad 4 with Cin <= 8 and Cout % 32 == 0; 3x3
+stride 2 pad 1 with Cin % 8 == 0 and Cout % 64 == 0: every float32 K3
+conv of the stylizer), and ``fav_conv_in`` (``csrc/conv_in.cu``) for the
+rest. The C
 entries are bound through ctypes with the
 argument kinds of ``ops/_build.SIGNATURES``: a pointer declared there as an
 int would be cut to 32 bits without any error, so every ``extern "C"``
@@ -31,6 +35,7 @@ from fast_artistic_videos_tpu_torch.ops import _build, _conv_in
 BF16, F32 = torch.bfloat16, torch.float32
 TC, FRONT = "fav_conv_tc", "fav_front_tc"
 F32_3X3, GENERAL = "fav_conv3x3_f32", "fav_conv_in"
+FRONT_F32 = "fav_front_f32"
 
 
 @pytest.mark.parametrize("dtype,k,stride,pad,cin,cout,want", [
@@ -96,9 +101,23 @@ def test_tensor_core_route_covers_the_stylizer_widths():
     (F32, 3, 1, 1, 256, 256, F32_3X3),
     (F32, 3, 1, 0, 8, 128, F32_3X3),      # one 8-channel chunk
     (F32, 3, 1, 0, 40, 128, F32_3X3),     # five chunks
-    (F32, 9, 1, 4, 7, 32, GENERAL),       # K3 layer 0 in float32
-    (F32, 3, 2, 1, 32, 64, GENERAL),      # K3 layers 1 and 2 (stride 2)
-    (F32, 3, 2, 1, 64, 128, GENERAL),
+    (F32, 9, 1, 4, 7, 32, FRONT_F32),     # K3 layer 0 in float32
+    (F32, 3, 2, 1, 32, 64, FRONT_F32),    # K3 layers 1 and 2 (stride 2)
+    (F32, 3, 2, 1, 64, 128, FRONT_F32),
+    (F32, 9, 1, 4, 3, 64, FRONT_F32),     # the float32 front's other widths
+    (F32, 9, 1, 4, 8, 96, FRONT_F32),
+    (F32, 3, 2, 1, 8, 64, FRONT_F32),
+    (F32, 3, 2, 1, 96, 128, FRONT_F32),
+    (F32, 3, 2, 1, 128, 192, FRONT_F32),  # 64-channel blocks
+    (F32, 9, 1, 4, 9, 32, GENERAL),       # 9x9 beyond one 8-channel chunk
+    (F32, 9, 1, 4, 7, 48, GENERAL),       # Cout not a multiple of 32
+    (F32, 9, 1, 3, 7, 32, GENERAL),       # 9x9 without the pad of 4
+    (F32, 9, 2, 4, 7, 32, GENERAL),       # 9x9 at stride 2
+    (F32, 3, 2, 1, 20, 40, GENERAL),      # a narrow stride-2 conv
+    (F32, 3, 2, 1, 12, 64, GENERAL),      # Cin not a multiple of 8
+    (F32, 3, 2, 1, 32, 96, GENERAL),      # Cout not a multiple of 64
+    (F32, 3, 2, 0, 32, 64, GENERAL),      # stride 2 without the pad of 1
+    (F32, 5, 2, 2, 32, 64, GENERAL),      # another front kernel size
     (F32, 3, 1, 0, 40, 48, GENERAL),      # narrow Cout
     (F32, 3, 1, 0, 12, 128, GENERAL),     # Cin not a multiple of 8
     (F32, 3, 1, 0, 128, 64, GENERAL),     # Cout not a multiple of 128
@@ -115,12 +134,12 @@ def test_tensor_core_route_covers_the_stylizer_widths():
 def test_conv_route_rule(dtype, k, stride, pad, cin, cout, want):
     assert _conv_in.conv_route(dtype, k, k, stride, pad, cin, cout) == want
     tc = _conv_in.tensor_core_route(dtype, k, k, stride, pad, cin, cout)
-    assert want == tc if tc is not None else want in (F32_3X3, GENERAL)
+    assert want == tc if tc is not None else want in (F32_3X3, FRONT_F32, GENERAL)
 
 
 def test_conv_route_covers_the_stylizer_widths():
-    """Every float32 K2 and K4 conv of the demo model takes conv3x3_f32.cu;
-    the float32 front (K3) stays on conv_in.cu."""
+    """Every float32 K2 and K4 conv of the demo model takes conv3x3_f32.cu,
+    and every float32 front conv (K3) front_f32.cu."""
     from fast_artistic_videos_tpu_torch.models import checkpoint
 
     spec = checkpoint.load_model("demo", "cpu")[0]
@@ -132,7 +151,7 @@ def test_conv_route_covers_the_stylizer_widths():
     cin = spec.in_channels
     for l in spec.layers[:3]:
         shape = (l.ksize, l.ksize, l.stride, l.pad, cin, l.out_channels)
-        assert _conv_in.conv_route(F32, *shape) == GENERAL
+        assert _conv_in.conv_route(F32, *shape) == FRONT_F32
         cin = l.out_channels
 
 
@@ -159,7 +178,8 @@ def _c_entries():
 
 def test_every_c_entry_has_a_matching_signature():
     entries = _c_entries()
-    assert {"fav_conv_tc", "fav_front_tc", "fav_conv_in", "fav_conv3x3_f32"} <= set(entries)
+    assert {"fav_conv_tc", "fav_front_tc", "fav_conv_in", "fav_conv3x3_f32", "fav_front_f32",
+            "fav_strip_warp", "fav_strip_warp_sum"} <= set(entries)
     assert set(entries) == set(_build.SIGNATURES)
     for name, kinds in entries.items():
         bound = ["p" if t is ctypes.c_void_p else "i" if t is ctypes.c_int else "?"

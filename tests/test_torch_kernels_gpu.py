@@ -20,6 +20,7 @@ from fast_artistic_videos_tpu_torch.models import arch_dsl, checkpoint, stylizer
 from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel, front_kernel, rblock_kernel
 from fast_artistic_videos_tpu_torch.ops import warp_kernel
 from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
+from fast_artistic_videos_tpu_torch.video import driver_vr
 from fast_artistic_videos_tpu_torch.video import vr_geometry as vr
 
 pytestmark = pytest.mark.gpu
@@ -140,8 +141,14 @@ def test_front_conv_kernel_matches_plain(cuda, dtype, tol, prologue, h, w, k, st
     the plain version, cuDNN's bf16 conv, is itself 2.3e-3 and its
     statistics up to 8e-3 from that float64 conv. That is why the affine's
     bias is small here: a channel whose variance is a small difference of
-    large sums magnifies the reference's error past 1e-2. Float32 and the
-    narrow 20 -> 40 conv take the CUDA-core route."""
+    large sums magnifies the reference's error past 1e-2. Float32 at the
+    front's shapes takes the register-tiled kernel (front_f32.cu: 9x9 at
+    Cin <= 8 in 32-channel blocks; 3x3 stride 2 in 8-channel chunks, 64 or
+    128 output channels per block); there the statistics are also held
+    within 1e-4 as the instance norm reads them, and y within 1e-5 of a
+    float64 conv of the same float32 values (float32 rounding is ~1e-6).
+    The narrow 20 -> 40 conv takes the general template (conv_in.cu) in
+    both dtypes."""
     rng = np.random.default_rng(3)
     x = _t(rng.standard_normal((h, w, cin)), cuda, dtype)
     wt = _t(rng.standard_normal((cout, cin, k, k)) / np.sqrt(k * k * cin), cuda)
@@ -149,7 +156,9 @@ def test_front_conv_kernel_matches_plain(cuda, dtype, tol, prologue, h, w, k, st
     kw = dict(eff=_t(np.stack([rng.random(cin) + 0.5, rng.standard_normal(cin) * 0.1]), cuda)
               if prologue else None, relu=prologue)
     tc = dtype == torch.bfloat16 and cin != 20
-    entry = "fav_front_tc" if tc else "fav_conv_in"
+    entry = ("fav_conv_in" if cin == 20 else
+             "fav_front_tc" if dtype == torch.bfloat16 else "fav_front_f32")
+    assert _conv_in.conv_route(dtype, k, k, stride, pad, cin, cout) == entry
     kern = front_kernel.KERNEL
     before = (kern.launches, kern.routes.get(entry, 0))
     got = front_kernel.same_conv(x, wt, b, stride, pad, **kw)
@@ -169,6 +178,38 @@ def test_front_conv_kernel_matches_plain(cuda, dtype, tol, prologue, h, w, k, st
         assert ((y - ref).norm() / ref.norm()).item() <= 4e-3
         st = torch.stack([ref.sum(dim=(0, 1)), (ref * ref).sum(dim=(0, 1))])
         assert _stats_err(got[1].double(), st, ho * wo) <= 4e-3
+    if entry == "fav_front_f32":
+        assert _stats_err(got[1], want[1], ho * wo) <= 1e-4
+        a = _conv_in._prologue(x, kw["eff"], prologue, None).double()
+        ref = torch.nn.functional.conv2d(a.permute(2, 0, 1)[None], wt.double(), b.double(),
+                                         stride, pad)[0].permute(1, 2, 0)
+        assert ((got[0].double() - ref).norm() / ref.norm()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("layer", [0, 1, 2])
+def test_front_f32_at_the_stylizers_shapes(cuda, layer):
+    """The float32 front kernel at the 1080p stylizer's three layers (after
+    the 40 px reflect pad), one launch each on fav_front_f32, against the
+    plain version: y and the statistics within 1e-4 (relative L2), the
+    statistics also as the instance norm reads them."""
+    h, w, cin, cout, k, stride, pad = [(1160, 2000, 7, 32, 9, 1, 4),
+                                       (1160, 2000, 32, 64, 3, 2, 1),
+                                       (580, 1000, 64, 128, 3, 2, 1)][layer]
+    rng = np.random.default_rng(20 + layer)
+    x = _t(rng.standard_normal((h, w, cin)), cuda)
+    wt = _t(rng.standard_normal((cout, cin, k, k)) / np.sqrt(k * k * cin), cuda)
+    b = _t(rng.standard_normal(cout) * 0.1, cuda)
+    kw = dict(eff=_t(np.stack([rng.random(cin) + 0.5, rng.standard_normal(cin) * 0.1]), cuda)
+              if layer else None, relu=layer > 0)
+    kern = front_kernel.KERNEL
+    before = kern.routes.get("fav_front_f32", 0)
+    got = front_kernel.same_conv(x, wt, b, stride, pad, **kw)
+    assert kern.routes.get("fav_front_f32", 0) == before + 1
+    want = front_kernel.same_conv_plain(x, wt, b, stride, pad, **kw)
+    assert got[0].shape == want[0].shape
+    for g, ref in zip(got, want):
+        assert ((g - ref).norm() / ref.norm()).item() <= 1e-4
+    assert _stats_err(got[1], want[1], want[0].shape[0] * want[0].shape[1]) <= 1e-4
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
@@ -296,9 +337,43 @@ def test_strip_warp_kernel_matches_plain(cuda, face, overlap, dtype, batch):
         assert (got - want).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("case", [1, 2, 3, 4, 5, "blend"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("face,overlap,views", [(64, 16, False), (200, 28, True)])
+def test_strip_sum_kernel_matches_plain(cuda, case, dtype, face, overlap, views):
+    """K5's summing entry, one launch per border prior (positions 1-5, the
+    faces not yet done None) and one for the cross-face blend of all six
+    faces, against its plain version (the composition of the single-map
+    plain warps, rotated copies and torch ops) on the same faces: float32
+    1e-5. The faces are float32 or bfloat16, contiguous or (views) row
+    slices of a larger tensor, as the engine returns its unpadded output."""
+    rng = np.random.default_rng(9)
+    opt = driver_vr.VROptions(overlap_pixel_w=overlap, overlap_pixel_h=overlap)
+    g = driver_vr._Geometry(face, face, opt, cuda)
+    assert isinstance(g.borders, strip_warp_kernel.StripSet)
+    big = _t(rng.random((6, face + 3, face + 5, 3)), cuda, dtype)
+    faces = [big[p, :face, :face] if views else big[p, :face, :face].contiguous()
+             for p in range(6)]
+    k = strip_warp_kernel.KERNEL
+    before = (k.launches, k.routes.get("fav_strip_warp_sum", 0))
+    if case == "blend":
+        got = g.borders.blend(faces, g.grad_all, g.mask_all_div)
+        want = g.borders.blend_plain(faces, g.grad_all, g.mask_all_div)
+    else:
+        done = [faces[i] if i < case else None for i in range(4)]
+        got = [g.borders.prior(case, done, g.mask_all_div)]
+        want = [g.borders.prior_plain(case, done, g.mask_all_div)]
+    assert (k.launches, k.routes.get("fav_strip_warp_sum", 0)) == (before[0] + 1,
+                                                                   before[1] + 1)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == (face, face, 3) == b.shape
+        assert (a - b).abs().max().item() <= 1e-5
+
+
 def test_stylizer_kernel_path_matches_plain_path(cuda):
-    """Batch 1 in float32: K3 three launches on the general template, K2
-    ten on the float32 3x3 kernel, within max-abs/255 1e-3 of the cuDNN
+    """Batch 1 in float32: K3 three launches on the float32 front kernel,
+    K2 ten on the float32 3x3 kernel, within max-abs/255 1e-3 of the cuDNN
     path."""
     spec, params, _ = checkpoint.load_model("demo", cuda)
     x = _t(np.random.default_rng(4).standard_normal((1, 96, 128, 7)) * 60, cuda)
@@ -308,7 +383,7 @@ def test_stylizer_kernel_path_matches_plain_path(cuda):
     got = stylizer.apply(params, spec, x)                 # CUDA: kernels by default
     assert [k.launches - b for k, b in zip(kernels, before)] == [3, 10, 0]
     assert [k.routes.get(e, 0) - r.get(e, 0) for k, r, e in zip(
-        kernels, routes, ("fav_conv_in", "fav_conv3x3_f32", "fav_conv3x3_f32"))] == [3, 10, 0]
+        kernels, routes, ("fav_front_f32", "fav_conv3x3_f32", "fav_conv3x3_f32"))] == [3, 10, 0]
     want = stylizer.apply(params, spec, x, fused=False)
     assert (got - want).abs().max().item() / 255.0 <= 1e-3
 
@@ -360,8 +435,18 @@ def test_kernels_launch_on_the_tensors_card(cuda):
     bf = _t(rng.standard_normal(64) * 0.1, dev)
     ef = _t(np.stack([rng.random(32) + 0.5, rng.standard_normal(32)]), dev)
 
+    # float32 front: 9x9 (7 -> 32) and 3x3 stride 2 (32 -> 64, prologue),
+    # each with its shared-memory limit lifted per card
+    x9 = _t(rng.standard_normal((23, 37, 7)), dev)
+    w9 = _t(rng.standard_normal((32, 7, 9, 9)) / 24, dev)
+    b9 = _t(rng.standard_normal(32) * 0.1, dev)
+
     face = _t(rng.random((40, 40, 3)), dev)
     strip = strip_warp_kernel.make_static_strip_warp(_vr_maps(40, 12)[2])
+    # K5's summing entry: the cross-face blend of six faces, one launch
+    geo = driver_vr._Geometry(40, 40, driver_vr.VROptions(overlap_pixel_w=12,
+                                                          overlap_pixel_h=12), dev)
+    faces = [_t(rng.random((40, 40, 3)), dev) for _ in range(6)]
 
     def rel(g, ref):
         g, ref = g.float(), ref.float()
@@ -397,6 +482,18 @@ def test_kernels_launch_on_the_tensors_card(cuda):
                           front_kernel.same_conv_plain(xf, wf, bf, 2, 1, eff=ef, relu=True)):
             assert rel(g, ref) <= 1e-2
         assert front_kernel.KERNEL.routes.get("fav_front_tc", 0) == before + 1
+        before = front_kernel.KERNEL.routes.get("fav_front_f32", 0)
+        for args in ((x9, w9, b9, 1, 4), (x, wf, bf, 2, 1)):
+            kw = dict(eff=ef, relu=True) if args[3] == 2 else {}
+            for g, ref in zip(front_kernel.same_conv(*args, **kw),
+                              front_kernel.same_conv_plain(*args, **kw)):
+                assert rel(g, ref) <= 1e-4
+        assert front_kernel.KERNEL.routes.get("fav_front_f32", 0) == before + 2
+        before = strip_warp_kernel.KERNEL.routes.get("fav_strip_warp_sum", 0)
+        for g, ref in zip(geo.borders.blend(faces, geo.grad_all, geo.mask_all_div),
+                          geo.borders.blend_plain(faces, geo.grad_all, geo.mask_all_div)):
+            assert (g - ref).abs().max().item() <= 1e-5
+        assert strip_warp_kernel.KERNEL.routes.get("fav_strip_warp_sum", 0) == before + 1
 
     assert torch.cuda.current_device() == 0
     check()
@@ -423,6 +520,19 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     strip = strip_warp_kernel.make_static_strip_warp(_vr_maps(32, 8)[0])
     with pytest.raises(TypeError):
         strip(x)
+    geo = driver_vr._Geometry(32, 32, driver_vr.VROptions(overlap_pixel_w=8,
+                                                          overlap_pixel_h=8), cuda)
+    faces = [torch.zeros(32, 32, 3, device=cuda) for _ in range(6)]
+    with pytest.raises(ValueError):                         # a float16 face
+        geo.borders.blend(faces[:5] + [faces[5].half()], geo.grad_all, geo.mask_all_div)
+    with pytest.raises(ValueError):                         # a face of another size
+        geo.borders.prior(1, [torch.zeros(32, 30, 3, device=cuda)] + [None] * 3,
+                          geo.mask_all_div)
+    with pytest.raises(ValueError):                         # float32 front, emits no input
+        _conv_in.conv_in(
+            front_kernel.KERNEL, torch.zeros(20, 20, 7, device=cuda),
+            torch.zeros(32, 7, 9, 9, device=cuda), torch.zeros(32, device=cuda),
+            stride=1, pad=4, emit_input=True)
     with pytest.raises(ValueError):
         rblock_kernel.chain_conv(torch.zeros(8, 8, 4, device=cuda),
                                  torch.zeros(4, 5, 3, 3, device=cuda),
