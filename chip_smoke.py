@@ -23,7 +23,13 @@ Phases (any failure exits non-zero, before the result line is printed):
      of six 922-px faces (and a border prior) in one launch, against its
      plain composition, timed beside the composition the VR driver ran
      before it (24 single-map launches, rotated copies, torch ops) and
-     beside the same composition over 24 grid_sample calls;
+     beside the same composition over 24 grid_sample calls. K2 and K4 in
+     bfloat16 are bit-identical with their packed weights and rounded bias
+     cached and packed afresh, with the host microseconds per call of
+     both. K1 takes the C entry ops/warp_kernel.py's warp_route names
+     (fav_warp_banded for C <= 4, fav_warp_banded_vec otherwise), each
+     case beside grid_sample; after phase 10, K1 also runs at every (shape,
+     dtype, band) that phases 4, 6 and 9 launched and this list lacks;
   4. the 2D main path: the streaming stylizer (bundled demo model, bundled
      flow estimator, flow at half resolution) on 12 seeded 1080p pan
      frames, float32 then bfloat16, through the CLI's build functions and
@@ -32,7 +38,10 @@ Phases (any failure exits non-zero, before the result line is printed):
      for its dtype (bfloat16: K2 and K3 on the tensor cores; float32: K2 on
      conv3x3_f32.cu, K3 on front_f32.cu), and every output must be finite;
      fps with and without PNG encoding, and the device's busy share without
-     it (torch.profiler);
+     it (torch.profiler). K1's launches of the counted runs of phases 4, 6
+     and 9 are recorded by (shape, dtype, band, C entry), in this script
+     (warp_kernel.warp_banded wrapped), and the record must sum to K1's
+     launch and route counters;
   5. the port on the card against the JAX package's committed 2D CLI output
      (tests/fixtures/torch_parity_demo.npz), mean-abs <= 1e-2 per frame;
   6. the VR main path: the spherical stylizer on 6 frames of six seeded
@@ -75,11 +84,14 @@ cores; K3's row also lists its three layers under "layers", each with its
 shape and both dtypes' C entry and figures) and {"ok": true, "device":
 {...}}. K5's summing entry has a row of its own ("strip_warp_sum": the
 cross-face blend, with the times of the composition it replaced and of the
-same composition over grid_sample). float32 runs with TF32 off.
+same composition over grid_sample); K1's row lists its launches by C entry
+("routes") and every phase-3 case with its launches on the main paths
+("cases"). float32 runs with TF32 off.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -214,6 +226,74 @@ def _check_routes(kernels, launches, dtype, where):
             for name, k in kernels.items()}
 
 
+class WarpShapes:
+    """K1's launches on the main paths (phases 4, 6 and 9) by (shape, dtype,
+    band, C entry), and the inputs of the first launch of each, kept on the
+    card: phase 3 adds a case for each shape its own list lacks, and times
+    K1 on the flows the main paths produced (their taps lie close together)
+    beside its seeded random flows (whose taps scatter over the whole band).
+    `recording()` wraps warp_kernel.warp_banded, here in the script and not
+    in the package, for one run (the flow thread launches too, hence the
+    lock); `check` holds that run's record against K1's own counters."""
+
+    def __init__(self):
+        import threading
+
+        self.counts, self.inputs, self.run = {}, {}, {}
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def recording(self):
+        from fast_artistic_videos_tpu_torch.ops import warp_kernel
+
+        fn = warp_kernel.warp_banded
+        self.run = {}
+
+        def wrapped(img, flow, band):
+            if img.device.type == "cuda":
+                entry = warp_kernel.warp_route(img.shape[-1], img.dtype,
+                                               img.data_ptr() % 16 == 0)[0]
+                key = (tuple(img.shape), str(img.dtype).split(".")[-1], int(band), entry)
+                with self._lock:
+                    self.run[key] = self.run.get(key, 0) + 1
+                    if key not in self.inputs:
+                        self.inputs[key] = (img.clone(), flow.clone())
+            return fn(img, flow, band)
+        warp_kernel.warp_banded = wrapped
+        try:
+            yield self
+        finally:
+            warp_kernel.warp_banded = fn
+            for key, n in self.run.items():
+                self.counts[key] = self.counts.get(key, 0) + n
+
+    def check(self, kernel, where):
+        """Log the last run's record; raise unless it sums to the kernel's
+        launches and its C entries to the kernel's routes."""
+        by_entry = {}
+        for (_, _, _, entry), n in self.run.items():
+            by_entry[entry] = by_entry.get(entry, 0) + n
+        for (shape, dtype, band, entry), n in sorted(self.run.items()):
+            log(f"K1 shape {where}: {shape} {dtype} band {band} via {entry}: {n} launches")
+        if sum(self.run.values()) != kernel.launches or by_entry != kernel.routes:
+            raise AssertionError(f"{where}: K1 record {by_entry} != launches {kernel.launches} "
+                                 f"by entry {kernel.routes}")
+
+
+def _host_us(torch, fn, n):
+    """Host microseconds per call over n calls without a synchronisation,
+    after 5 warm-up calls (tools/time_launch_path.py's timer)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
 def _profile_ms(torch, fn, name, n=20, tries=3):
     """The kernel's own device time per call (ms): torch.profiler over n
     calls, summed over the kernels whose name contains `name`. Each call
@@ -234,6 +314,24 @@ def _profile_ms(torch, fn, name, n=20, tries=3):
         if count:
             return ms / count
     raise RuntimeError(f"profiler kept no record of {name} in {tries} profiles")
+
+
+def _graph_ms(torch, fn, n=20):
+    """Device time per call (ms) where the profiler keeps no record of a
+    small kernel: n calls captured in one CUDA graph and replayed back to
+    back, with no host work between the launches; CUDA events over a
+    replay (median of 10), divided by n. It includes the gap between two
+    launches of the graph (about a microsecond)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return _time_ms(torch, graph.replay, n=10) / n
 
 
 def _profile_total_ms(torch, fn, n=20, tries=3):
@@ -278,6 +376,132 @@ def sass_mma_counts(lib_path):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def warp_cases(torch, g, out, shape, band, dtype, tol, inputs=None):
+    """One K1 case: the kernel against its plain version on seeded inputs
+    (image uniform in [0, 1), flow uniform up to 1.2 x band per pixel, so
+    some taps leave the band), or on `inputs` (image, flow) that a main path
+    launched it with, with CUDA-event, device (profiler), plain, bound and
+    grid_sample times; appended to out."""
+    from fast_artistic_videos_tpu_torch.ops import warp_kernel
+
+    dev = "cuda"
+    if inputs is None:
+        img = torch.rand(shape, generator=g).to(dev, dtype)
+        flow = ((torch.rand(shape[:3] + (2,), generator=g) * 2 - 1) * band * 1.2).to(dev)
+    else:
+        img, flow = inputs
+    entry, vec = warp_kernel.warp_route(shape[3], dtype, img.data_ptr() % 16 == 0)
+    before = warp_kernel.KERNEL.routes.get(entry, 0)
+    got = warp_kernel.warp_banded(img, flow, band)
+    want = warp_kernel.warp_banded_plain(img, flow, band)
+    torch.cuda.synchronize()
+    if warp_kernel.KERNEL.routes.get(entry, 0) != before + 1:
+        raise AssertionError(f"K1 {shape} {dtype}: the launch did not take {entry}")
+    err = (got.float() - want.float()).abs().max().item()
+    ms = _time_ms(torch, lambda: warp_kernel.warp_banded(img, flow, band))
+    try:
+        dev_ms, dev_by = _profile_ms(torch, lambda: warp_kernel.warp_banded(img, flow, band),
+                                     "warp_banded", tries=5), "profiler"
+    except RuntimeError as e:
+        log(f"K1 {tuple(shape)} {dtype}: {e}; device time from a CUDA graph instead")
+        dev_ms, dev_by = _graph_ms(torch, lambda: warp_kernel.warp_banded(img, flow, band)), \
+            "CUDA graph"
+    plain_ms = _time_ms(torch, lambda: warp_kernel.warp_banded_plain(img, flow, band))
+    # each input read once (image, flow), the output written once; about
+    # 6 multiply-adds per output element
+    nel = img.numel()
+    b_ms, b_by = bound(2 * nel * img.element_size() + flow.numel() * 4, 12 * nel,
+                       _dname(torch, dtype))
+    # the yardstick: grid_sample's exact bilinear warp (zero padding,
+    # align_corners), which the banded two-pass form approximates
+    n, h, w = shape[:3]
+    ys = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1)
+    xs = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w)
+    grid = torch.stack([(xs + flow[..., 0]) * 2 / max(w - 1, 1) - 1,
+                        (ys + flow[..., 1]) * 2 / max(h - 1, 1) - 1], -1).to(dtype)
+    src = img.permute(0, 3, 1, 2)
+    lib_ms = _time_ms(torch, lambda: torch.nn.functional.grid_sample(
+        src, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+    flows = "random flow" if inputs is None else "main-path flow"
+    log(f"K1 warp {tuple(shape)} band {band} {dtype} {flows} via {entry} (vec {vec}): "
+        f"max_abs_err "
+        f"{err:.3g} (tol {tol:g}) kernel {ms:.4f} ms (device {dev_ms:.4f} ms, {dev_by}) "
+        f"plain {plain_ms:.4f} ms grid_sample {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); "
+        f"device at {b_ms / dev_ms:.0%} of the bound")
+    if not err <= tol:
+        raise AssertionError(f"K1 warp {shape} band {band} {dtype}: err {err}")
+    out.append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms, entry=entry,
+                    shape=list(shape), band=band, flows=flows, device_by=dev_by))
+
+
+def check_recorded_warps(torch, res, k1):
+    """Phase 3, continued after the main paths: K1 at each (shape, dtype,
+    band) that phases 4, 6 and 9 launched and phase 3's list lacks, on
+    seeded random flows, then at every one of them on the inputs of its
+    first launch there."""
+    g = torch.Generator(device="cpu").manual_seed(4321)
+    have = {(tuple(c["shape"]), _dname(torch, c["dtype"]), c["band"])
+            for c in res["warp_banded"]}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for shape, dname, band, _ in sorted(k1.counts):
+        if (shape, dname, band) in have:
+            continue
+        have.add((shape, dname, band))
+        warp_cases(torch, g, res["warp_banded"], shape, band, dtypes[dname],
+                   1e-5 if dname == "float32" else 2 ** -7)
+    for key in sorted(k1.counts):
+        shape, dname, band, _ = key
+        warp_cases(torch, g, res["warp_banded"], shape, band, dtypes[dname],
+                   1e-5 if dname == "float32" else 2 ** -7, inputs=k1.inputs[key])
+
+
+def check_bf16_packs(torch, g):
+    """K2 and K4 in bfloat16 (conv_tc.cu) read their weights packed once and
+    their bias rounded once per tensor (ops/_conv_in._packed): at the 1080p
+    shapes, the outputs with the cached packs are bit-identical to a launch
+    that packs and rounds afresh (the cache attributes cleared), and the
+    host microseconds per call of both."""
+    from fast_artistic_videos_tpu_torch.ops import conv_kernel, rblock_kernel
+
+    dev = "cuda"
+    x = torch.randn(290, 500, 128, generator=g).to(dev, torch.bfloat16)
+    x4 = torch.randn(4, 290, 500, 128, generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn(128, 128, 3, 3, generator=g) / 34).to(dev)
+    b = (torch.randn(128, generator=g) * 0.1).to(dev)
+    eff = torch.stack([torch.rand(128, generator=g) + 0.5,
+                       torch.randn(128, generator=g) * 0.1]).to(dev)
+
+    def clear():
+        for t, attr in ((wt, "_conv_tc_pack"), (b, "_bias_bfloat16")):
+            if hasattr(t, attr):
+                delattr(t, attr)
+    calls = {"K2": lambda: rblock_kernel.chain_conv(x, wt, b, eff=eff, pre_relu=True,
+                                                    emit_input=True),
+             "K4": lambda: conv_kernel.conv3x3_valid(x4, wt, b)}
+    for name, fn in calls.items():
+        fn()
+        cached = fn()
+        clear()
+        fresh = fn()
+        torch.cuda.synchronize()
+        # y and the emitted input bit for bit; K2's statistics are float32
+        # sums by atomics, whose order differs from launch to launch
+        cached = cached if isinstance(cached, tuple) else (cached,)
+        fresh = fresh if isinstance(fresh, tuple) else (fresh,)
+        same = all(torch.equal(cached[i], fresh[i]) for i in range(len(cached)) if i != 1)
+        if len(cached) > 1:
+            same = same and torch.allclose(cached[1], fresh[1], rtol=1e-5, atol=0)
+        us = _host_us(torch, fn, 50)
+        us_fresh = _host_us(torch, lambda: (clear(), fn()), 50)
+        log(f"{name} bf16 packs: outputs with the cached packs bit-identical to packing afresh "
+            f"(statistics within float32 atomics' order, rtol 1e-5): "
+            f"{same}; host {us:.1f} us per call with the cache, {us_fresh:.1f} us packing "
+            f"afresh (50 calls without a sync)")
+        if not same:
+            raise AssertionError(f"{name} bf16: the cached packs change the output")
+
+
 def check_kernels(torch):
     from fast_artistic_videos_tpu_torch.ops import _conv_in, front_kernel, rblock_kernel
     from fast_artistic_videos_tpu_torch.ops import warp_kernel
@@ -286,48 +510,13 @@ def check_kernels(torch):
     dev = "cuda"
     res = {"warp_banded": [], "front_conv": [], "res_chain_conv": []}
 
-    def warp_case(shape, band, dtype, tol, library=False):
-        img = torch.rand(shape, generator=g).to(dev, dtype)
-        flow = ((torch.rand(shape[:3] + (2,), generator=g) * 2 - 1) * band * 1.2).to(dev)
-        got = warp_kernel.warp_banded(img, flow, band)
-        want = warp_kernel.warp_banded_plain(img, flow, band)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ms = _time_ms(torch, lambda: warp_kernel.warp_banded(img, flow, band))
-        dev_ms = _profile_ms(torch, lambda: warp_kernel.warp_banded(img, flow, band),
-                             "warp_banded_kernel")
-        plain_ms = _time_ms(torch, lambda: warp_kernel.warp_banded_plain(img, flow, band))
-        # each input read once (image, flow), the output written once; about
-        # 6 multiply-adds per output element
-        nel = img.numel()
-        b_ms, b_by = bound(2 * nel * img.element_size() + flow.numel() * 4, 12 * nel,
-                           _dname(torch, dtype))
-        lib_ms, lib_txt = None, ""
-        if library:
-            # the yardstick: grid_sample's exact bilinear warp (zero padding,
-            # align_corners), which the banded two-pass form approximates
-            n, h, w = shape[:3]
-            ys = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1)
-            xs = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w)
-            grid = torch.stack([(xs + flow[..., 0]) * 2 / (w - 1) - 1,
-                                (ys + flow[..., 1]) * 2 / (h - 1) - 1], -1).to(dtype)
-            src = img.permute(0, 3, 1, 2)
-            lib_ms = _time_ms(torch, lambda: torch.nn.functional.grid_sample(
-                src, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
-            lib_txt = f" grid_sample {lib_ms:.4f} ms"
-        log(f"K1 warp {tuple(shape)} band {band} {dtype}: max_abs_err {err:.3g} "
-            f"(tol {tol:g}) kernel {ms:.4f} ms (device {dev_ms:.4f} ms, profiler) plain "
-            f"{plain_ms:.4f} ms{lib_txt} bound {b_ms:.4f} ms ({b_by})")
-        if not err <= tol:
-            raise AssertionError(f"K1 warp {shape} band {band} {dtype}: err {err}")
-        res["warp_banded"].append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype,
-                                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                       device_ms=dev_ms, entry="fav_warp_banded"))
+    def warp_case(shape, band, dtype, tol):
+        warp_cases(torch, g, res["warp_banded"], shape, band, dtype, tol)
 
     f32, bf16 = torch.float32, torch.bfloat16
-    warp_case((1, 1080, 1920, 3), 16, f32, 1e-5, library=True)   # engine prior warp
+    warp_case((1, 1080, 1920, 3), 16, f32, 1e-5)   # engine prior warp
     warp_case((1, 1080, 1920, 3), 32, f32, 1e-5)
-    warp_case((1, 1080, 1920, 3), 16, bf16, 2 ** -7, library=True)
+    warp_case((1, 1080, 1920, 3), 16, bf16, 2 ** -7)
     warp_case((1, 540, 960, 2), 32, f32, 1e-5)         # consistency sample
     warp_case((1, 540, 960, 2), 16, f32, 1e-5)
     for shape in ((1, 272, 480, 16), (1, 136, 240, 32), (1, 68, 120, 64), (1, 34, 60, 96)):
@@ -411,6 +600,7 @@ def check_kernels(torch):
     res["strip_warp"] = check_strip_warp(torch, g)
     res["strip_warp_sum"] = check_strip_sum(torch, g)
     res["conv3x3"] = check_block_conv(torch, g)
+    check_bf16_packs(torch, g)
     return res
 
 
@@ -691,7 +881,7 @@ def _drive(torch, opt, record=None, write=True):
     return results, s.elapsed_time(e) / 1000.0
 
 
-def run_main_path(torch, workdir):
+def run_main_path(torch, workdir, k1):
     import numpy as np
     from fast_artistic_videos_tpu_torch.core import io
 
@@ -708,15 +898,18 @@ def run_main_path(torch, workdir):
     # check's sample
     expect = {"front_conv": 3 * n, "res_chain_conv": 10 * n, "warp_banded": pairs * (1 + 6 + 1),
               "conv3x3": 0, "strip_warp": 0}
-    counted, routes = {}, {}
+    counted, routes, k1_routes = {}, {}, {}
     fps = {}
     for dtype in ("float32", "bfloat16"):
         prefix = os.path.join(workdir, dtype, "o")
         _drive(torch, _options(pattern, prefix, dtype, 3))     # warm-up, not counted
         _reset(kernels)
         outs = []
-        results, secs = _drive(torch, _options(pattern, prefix, dtype, n), record=outs)
+        with k1.recording():
+            results, secs = _drive(torch, _options(pattern, prefix, dtype, n), record=outs)
         launches = {name: k.launches for name, k in kernels.items()}
+        k1.check(kernels["warp_banded"], f"main path {dtype}")
+        k1_routes[dtype] = dict(kernels["warp_banded"].routes)
         log(f"main path {dtype}: {len(results)} frames {SIZE_1080} in {secs:.3f} s "
             f"({len(results) / secs:.3f} fps, CUDA events over the whole run), "
             f"launches {launches}, expected {expect}")
@@ -739,7 +932,7 @@ def run_main_path(torch, workdir):
         log(f"main path {dtype} without PNG encoding: {len(results) / secs:.3f} fps; device "
             f"kernel time / wall time {busy:.3f} (torch.profiler kernel time over the wall "
             f"time of the unprofiled run)")
-    return counted, routes, fps
+    return counted, routes, fps, k1_routes
 
 
 def stage_times(torch, workdir):
@@ -857,7 +1050,7 @@ def _device_events(prof, name=""):
     return total / 1000.0, count
 
 
-def run_vr_path(torch, workdir):
+def run_vr_path(torch, workdir, k1):
     """Phase 6. Returns ({dtype: launches}, {dtype: tensor-core launches},
     {dtype: fps})."""
     from fast_artistic_videos_tpu_torch.core import io
@@ -885,8 +1078,11 @@ def run_vr_path(torch, workdir):
         _vr_drive(torch, _vr_options(pattern, prefix, dtype, 2))       # warm-up
         _reset(kernels)
         outs = []
-        faces_done, secs = _vr_drive(torch, _vr_options(pattern, prefix, dtype, n), record=outs)
+        with k1.recording():
+            faces_done, secs = _vr_drive(torch, _vr_options(pattern, prefix, dtype, n),
+                                         record=outs)
         launches = {name: k.launches for name, k in kernels.items()}
+        k1.check(kernels["warp_banded"], f"VR path {dtype}")
         log(f"VR path {dtype}: {faces_done} faces ({n} frames of 6 x {VR_FACE}^2, overlap "
             f"{VR_OVERLAP}) in {secs:.3f} s ({n / secs:.3f} fps, CUDA events over the whole "
             f"run, PNG output), launches {launches}, expected {expect}")
@@ -1098,7 +1294,7 @@ def _reuse_schedule(n, k):
     return keys, reuse
 
 
-def run_reuse_and_scale(torch, workdir):
+def run_reuse_and_scale(torch, workdir, k1):
     """Phase 9, float32, on the phase-4 frames; phase 4's float32 PNGs are
     the exact run. Returns {"reuse": fps, "reuse_no_png": fps, "scale": fps}."""
     import dataclasses
@@ -1122,8 +1318,10 @@ def run_reuse_and_scale(torch, workdir):
     _drive(torch, dataclasses.replace(opt, num_frames=4))        # warm-up
     _reset(kernels)
     outs = []
-    results, secs = _drive(torch, opt, record=outs)
+    with k1.recording():
+        results, secs = _drive(torch, opt, record=outs)
     launches = {name: kk.launches for name, kk in kernels.items()}
+    k1.check(kernels["warp_banded"], "feature reuse")
     fps = {"reuse": n / secs}
     log(f"feature reuse 3, float32: {n} frames {SIZE_1080} ({keys} keyframes, {reuse} reuse "
         f"frames) in {secs:.3f} s ({n / secs:.3f} fps, CUDA events, PNG output), launches "
@@ -1233,15 +1431,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         # 4. 2D main path; 5. its fixture parity; 6. VR main path; 7. its
         # fixture parity
-        counted, routes, fps = run_main_path(torch, work)
+        k1 = WarpShapes()
+        counted, routes, fps, k1_routes = run_main_path(torch, work, k1)
         stage_times(torch, work)
         check_fixture(torch, work)
-        vr_counted, vr_routes, vr_fps = run_vr_path(torch, work)
+        vr_counted, vr_routes, vr_fps = run_vr_path(torch, work, k1)
         check_vr_fixture(torch, work)
         # 8. batched path; 9. feature reuse and scale; 10. their fixture
         b_counted, b_routes, b_fps, b_fps_no_png = run_batched_path(torch, work)
-        r_fps = run_reuse_and_scale(torch, work)
+        r_fps = run_reuse_and_scale(torch, work, k1)
         check_batch_fixture(torch, work)
+    # 3, continued: K1 at every shape phases 4, 6 and 9 launched
+    check_recorded_warps(torch, res, k1)
     torch.cuda.synchronize()
 
     rows = []
@@ -1283,6 +1484,20 @@ def main() -> int:
                 d.update(case=c["case"], before_ms=c["before_ms"],
                          before_device_ms=c["before_device_ms"],
                          library_device_ms=c["library_device_ms"])
+        if name == "warp_banded":
+            # K1's launches by C entry on the 2D path, and every case of
+            # phase 3 with its launches on the main paths (phases 4, 6, 9)
+            row["routes"] = k1_routes["float32"]
+            row["bfloat16"]["routes"] = k1_routes["bfloat16"]
+            row["cases"] = [
+                {"shape": c["shape"], "dtype": _dname(torch, c["dtype"]), "band": c["band"],
+                 "flows": c["flows"], "entry": c["entry"], "max_abs_err": c["err"],
+                 "device_by": c["device_by"],
+                 "main_path_launches": sum(n for (sh, dn, bd, _), n in k1.counts.items()
+                                           if (list(sh), dn, bd) == (c["shape"],
+                                                                     _dname(torch, c["dtype"]),
+                                                                     c["band"])),
+                 **figures(c)} for c in cases]
         if name == "front_conv":
             # K3's three layers, each in both dtypes (its first three cases
             # per dtype are layers 0, 1 and 2 of the main path)

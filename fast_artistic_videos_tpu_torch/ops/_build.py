@@ -43,6 +43,7 @@ _I = ctypes.c_int
 # int (cudaError_t)
 SIGNATURES = {
     "fav_warp_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fav_warp_banded_vec": [_P, _P, _P] + [_I] * 7 + [_P],
     "fav_conv_in": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "fav_conv3x3_f32": [_P] * 8 + [_I] * 8 + [_P],
     "fav_strip_warp": [_P] * 6 + [_I] * 12 + [_P],

@@ -156,8 +156,23 @@ def _front_f32_weights(w):
     return _packed(w, "_front_f32_pack", pack_front_f32_weights)
 
 
+def pack_tc_weights(w):
+    """OIHW weights -> the (3, 3, Cout, Cin) bfloat16 layout that
+    ``conv_tc.cu`` reads."""
+    return w.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()
+
+
 def _tc_weights(w):
-    return w.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()   # (3, 3, Cout, Cin)
+    return _packed(w, "_conv_tc_pack", pack_tc_weights)
+
+
+def rounded_bias(b, dtype):
+    """The float32 bias rounded to the storage dtype, as every route reads
+    it; kept on the tensor per dtype until b is modified in place."""
+    return _packed(b, _BIAS_ATTRS[dtype], lambda t: t.to(dtype).float().contiguous())
+
+
+_BIAS_ATTRS = {torch.float32: "_bias_float32", torch.bfloat16: "_bias_bfloat16"}
 
 
 # the 3x3 stride-1 entries: C entry -> (weight packer, whether x, skip and a
@@ -245,7 +260,7 @@ def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
     wout = (win + 2 * pad - kw) // stride + 1
     if hout < 1 or wout < 1:
         raise ValueError(f"{kernel.name}: empty output for input {(hin, win)}")
-    bt = b.to(dtype).float().contiguous()
+    bt = rounded_bias(b, dtype)
     effc = eff.float().contiguous() if eff is not None else None
     y = torch.empty((hout, wout, cout), dtype=dtype, device=x.device)
     stats = torch.zeros((2, cout), dtype=torch.float32, device=x.device)

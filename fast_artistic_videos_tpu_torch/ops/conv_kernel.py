@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import Kernel
-from ._conv_in import CONV3X3_ENTRIES, conv_route, launch_3x3
+from ._conv_in import CONV3X3_ENTRIES, conv_route, launch_3x3, rounded_bias
 
 KERNEL = Kernel("conv3x3", "fast_artistic_videos_tpu_torch/csrc/conv3x3_f32.cu",
                 "fast_artistic_videos_tpu/ops/conv_pallas.py:40")
@@ -65,7 +65,7 @@ def _launch(x, w, b, relu: bool, pad: int):
     hout, wout = hin + 2 * pad - 2, win + 2 * pad - 2
     if hout < 1 or wout < 1:
         raise ValueError(f"conv3x3: empty output for input {(hin, win)}")
-    bt = b.to(dtype).float().contiguous()                       # rounded like x
+    bt = rounded_bias(b, dtype)                                 # rounded like x
     y = torch.empty((n, hout, wout, cout), dtype=dtype, device=x.device)
     if not y.numel():
         return y

@@ -8,6 +8,12 @@ dx over the vertical result (so a displaced column's OWN dy is used — the
 documented composition approximation), each tap reading zero when its shift
 lies outside [-band, band + 1] or its source lies outside the image. Work is
 in float32 for float32 or bfloat16 input; the result is cast back.
+
+Two C entries (:func:`warp_route`): ``fav_warp_banded_vec`` takes one
+16-byte channel vector a thread where C allows it (every feature and delta
+width) and one element a thread otherwise; ``fav_warp_banded`` one pixel a
+thread for C <= 4 (the flow, RGB frames). Each launch adds one to
+``KERNEL.launches`` and to ``KERNEL.routes`` of its entry.
 """
 
 from __future__ import annotations
@@ -18,6 +24,12 @@ from ._build import Kernel, ptr
 
 KERNEL = Kernel("warp_banded", "fast_artistic_videos_tpu_torch/csrc/warp_banded.cu",
                 "fast_artistic_videos_tpu/ops/warp_pallas.py:32")
+PIXEL_ENTRY = "fav_warp_banded"
+VEC_ENTRY = "fav_warp_banded_vec"
+_DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's limits: 32-bit element offsets, rows and images on the grid's
+# y and z axes, channels, band
+_MAX_ELEMENTS, _MAX_GRID, _MAX_C, _MAX_BAND = 2 ** 31, 65535, 1024, 2 ** 24
 
 
 def _banded_pass(x, off, band: int, dim: int):
@@ -49,16 +61,33 @@ def warp_banded_plain(img, flow, band: int):
     return _banded_pass(v, f[..., 0], band, 2).to(img.dtype)
 
 
+def warp_route(c: int, dtype, aligned: bool = True):
+    """(C entry, elements a thread loads per tap) of K1 for C channels of
+    `dtype` (float32 or bfloat16), an image 16-byte aligned or not: a
+    pure function. ``fav_warp_banded_vec`` with a 16-byte channel vector a
+    thread (4 float32 or 8 bfloat16) where C is a multiple of it and the
+    image aligned; else ``fav_warp_banded`` with one pixel's C <= 4
+    channels a thread (flow, RGB); else ``fav_warp_banded_vec`` with one
+    element a thread (the scalar path)."""
+    vec = 16 // dtype.itemsize
+    if aligned and c % vec == 0:
+        return VEC_ENTRY, vec
+    if c <= 4:
+        return PIXEL_ENTRY, c
+    return VEC_ENTRY, 1
+
+
 def warp_banded(img, flow, band: int):
     """K1. img (N, H, W, C) float32 or bfloat16; flow (N, H, W, 2) float32
     (dx, dy). A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    kernel on the entry :func:`warp_route` names, or raises."""
     if img.device.type == "cpu":
         return warp_banded_plain(img, flow, band)
     if img.device.type != "cuda" or flow.device != img.device:
         raise ValueError(f"warp_banded: img on {img.device}, flow on {flow.device}")
-    if img.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"warp_banded: unsupported dtype {img.dtype}")
+    dtype = img.dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"warp_banded: unsupported dtype {dtype}")
     if flow.dtype != torch.float32:
         raise TypeError("warp_banded: flow must be float32")
     if img.ndim != 4 or flow.shape != img.shape[:3] + (2,):
@@ -66,8 +95,17 @@ def warp_banded(img, flow, band: int):
     if not (img.is_contiguous() and flow.is_contiguous()):
         raise ValueError("warp_banded: inputs must be contiguous")
     n, h, w, c = img.shape
+    if img.numel() >= _MAX_ELEMENTS or n > _MAX_GRID or h > _MAX_GRID or c > _MAX_C:
+        raise ValueError(f"warp_banded: shape {tuple(img.shape)} beyond the kernel's 32-bit "
+                         f"offsets, grid or {_MAX_C} channels")
+    if not 0 <= band <= _MAX_BAND:
+        raise ValueError(f"warp_banded: band {band} outside [0, {_MAX_BAND}]")
     out = torch.empty_like(img)
     if out.numel():
-        KERNEL.call("fav_warp_banded", img.device, ptr(img), ptr(flow), ptr(out),
-                    n, h, w, c, int(band), int(img.dtype == torch.bfloat16))
+        entry, vec = warp_route(c, dtype, img.data_ptr() % 16 == 0)
+        args = (ptr(img), ptr(flow), ptr(out), n, h, w, c, int(band), int(dtype == torch.bfloat16))
+        if entry == VEC_ENTRY:
+            KERNEL.call(entry, img.device, *args, vec)
+        else:
+            KERNEL.call(entry, img.device, *args)
     return out

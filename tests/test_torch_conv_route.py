@@ -179,13 +179,57 @@ def _c_entries():
 def test_every_c_entry_has_a_matching_signature():
     entries = _c_entries()
     assert {"fav_conv_tc", "fav_front_tc", "fav_conv_in", "fav_conv3x3_f32", "fav_front_f32",
-            "fav_strip_warp", "fav_strip_warp_sum"} <= set(entries)
+            "fav_strip_warp", "fav_strip_warp_sum", "fav_warp_banded",
+            "fav_warp_banded_vec"} <= set(entries)
     assert set(entries) == set(_build.SIGNATURES)
     for name, kinds in entries.items():
         bound = ["p" if t is ctypes.c_void_p else "i" if t is ctypes.c_int else "?"
                  for t in _build.SIGNATURES[name]]
         assert bound == kinds, name
         assert kinds[-1] == "p", f"{name}: the stream comes last"
+
+
+def test_tc_weights_are_packed_once_per_version(monkeypatch):
+    """The bfloat16 3x3 route's (3, 3, Cout, Cin) weights are built once per
+    parameter tensor and kept on it: a second launch reuses them, and an
+    in-place change of the weights (their version) rebuilds them."""
+    builds, pack = [], _conv_in.pack_tc_weights
+
+    def counting(w):
+        builds.append(w._version)
+        return pack(w)
+    monkeypatch.setattr(_conv_in, "pack_tc_weights", counting)
+    w = torch.randn(128, 64, 3, 3, generator=torch.Generator().manual_seed(0))
+    p1 = _conv_in._tc_weights(w)
+    assert _conv_in._tc_weights(w) is p1 and len(builds) == 1
+    assert p1.dtype == BF16 and p1.shape == (3, 3, 128, 64)
+    assert torch.equal(p1, w.to(BF16).permute(2, 3, 0, 1))
+    with torch.no_grad():
+        w.mul_(2.0)
+    p2 = _conv_in._tc_weights(w)
+    assert len(builds) == 2 and p2 is not p1
+    assert torch.equal(p2, w.to(BF16).permute(2, 3, 0, 1))
+    assert _conv_in._tc_weights(w) is p2 and len(builds) == 2
+    # another parameter tensor has a pack of its own
+    assert torch.equal(_conv_in._tc_weights(w.clone()), p2) and len(builds) == 3
+
+
+def test_rounded_bias_is_built_once_per_version_and_dtype():
+    """The float32 bias rounded to the storage dtype is kept on the tensor per
+    dtype, rebuilt after an in-place change, and equals the rounding it
+    replaces."""
+    b = torch.randn(128, generator=torch.Generator().manual_seed(1)) * 0.1
+    r16 = _conv_in.rounded_bias(b, BF16)
+    r32 = _conv_in.rounded_bias(b, F32)
+    assert r16.dtype == r32.dtype == F32 and r16.is_contiguous()
+    assert torch.equal(r16, b.to(BF16).float()) and torch.equal(r32, b)
+    assert not torch.equal(r16, r32)
+    assert _conv_in.rounded_bias(b, BF16) is r16 and _conv_in.rounded_bias(b, F32) is r32
+    with torch.no_grad():
+        b.add_(1.0)
+    n16 = _conv_in.rounded_bias(b, BF16)
+    assert n16 is not r16 and torch.equal(n16, b.to(BF16).float())
+    assert torch.equal(_conv_in.rounded_bias(b, F32), b)
 
 
 def test_kernel_counts_routes_and_resets():

@@ -44,17 +44,83 @@ def _t(a, dev, dtype=torch.float32):
     ((1, 45, 77, 2), 16, torch.float32, 1e-5),
     ((1, 33, 41, 64), 8, torch.float32, 1e-5),
     ((1, 50, 70, 32), 8, torch.bfloat16, 2 ** -7),
+] + [
+    # every entry and vector width (warp_route): C 2 and 3 one pixel a
+    # thread, 5 the scalar path, 16-128 one 16-byte vector a thread; N 1
+    # and 6, sizes that are no multiple of a tile (128 or 256 pixels, or
+    # 1024 vectors), bands 8 and 32 (the staged flow reaches 64 columns
+    # past a tile)
+    ((n, h, w, c), band, dtype, 1e-5 if dtype == torch.float32 else 2 ** -7)
+    for dtype in (torch.float32, torch.bfloat16)
+    for c, n, h, w, band in ((2, 1, 45, 261, 32), (2, 6, 23, 77, 8), (3, 1, 37, 389, 8),
+                             (3, 6, 29, 131, 32), (5, 1, 31, 300, 8), (5, 6, 17, 47, 32),
+                             (16, 1, 33, 517, 32), (16, 6, 21, 59, 8), (64, 1, 19, 70, 8),
+                             (64, 6, 13, 33, 32), (128, 1, 27, 75, 32), (128, 6, 9, 21, 8))
 ])
 def test_warp_kernel_matches_plain(cuda, shape, band, dtype, tol):
+    """K1, one launch on the entry warp_route names, against its plain
+    version: both compute in float32 from the same taps and weights, so
+    they agree to float32 rounding, and to one bf16 rounding step."""
     rng = np.random.default_rng(1)
     img = _t(rng.random(shape), cuda, dtype)
     flow = _t((rng.random(shape[:3] + (2,)) * 2 - 1) * band * 1.3, cuda)
-    before = warp_kernel.KERNEL.launches
+    entry, _ = warp_kernel.warp_route(shape[3], dtype)
+    k = warp_kernel.KERNEL
+    before = (k.launches, k.routes.get(entry, 0))
     got = warp_kernel.warp_banded(img, flow, band)
-    assert warp_kernel.KERNEL.launches == before + 1
+    assert (k.launches, k.routes.get(entry, 0)) == (before[0] + 1, before[1] + 1)
     want = warp_kernel.warp_banded_plain(img, flow, band)
     assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_kernel_unaligned_image(cuda, dtype):
+    """An image that starts off a 16-byte boundary (a view one element into
+    a larger tensor) takes the scalar path of fav_warp_banded_vec at 16
+    channels and the pixel entry at 3, and agrees with the plain version."""
+    rng = np.random.default_rng(14)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for c, want_route in ((16, (warp_kernel.VEC_ENTRY, 1)), (3, (warp_kernel.PIXEL_ENTRY, 3))):
+        big = _t(rng.random((2, 7, 9, c)), cuda, dtype)
+        img = big.view(-1)[1:1 + 6 * 9 * c].view(1, 6, 9, c)    # one element in
+        assert img.is_contiguous() and img.data_ptr() % 16
+        assert warp_kernel.warp_route(c, dtype, False) == want_route
+        flow = _t((rng.random((1, 6, 9, 2)) * 2 - 1) * 10, cuda)
+        k = warp_kernel.KERNEL
+        before = k.routes.get(want_route[0], 0)
+        got = warp_kernel.warp_banded(img, flow, 8)
+        assert k.routes.get(want_route[0], 0) == before + 1
+        want = warp_kernel.warp_banded_plain(img, flow, 8)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_bf16_convs_are_bit_identical_without_the_cached_packs(cuda):
+    """K2 and K4 in bfloat16 (conv_tc.cu) read the weights packed once and
+    the bias rounded once per tensor: y and the emitted input are
+    bit-identical to a launch that packs and rounds afresh (the cache
+    attributes cleared). K2's statistics are float32 sums by atomics, whose
+    order changes from launch to launch even on the same inputs, so they
+    are held to float32 rounding (relative 1e-5)."""
+    rng = np.random.default_rng(15)
+    x = _t(rng.standard_normal((37, 45, 128)), cuda, torch.bfloat16)
+    wt = _t(rng.standard_normal((128, 128, 3, 3)) / 34, cuda)
+    b = _t(rng.standard_normal(128) * 0.1, cuda)
+    kw = dict(eff=_t(np.stack([rng.random(128) + 0.5, rng.standard_normal(128) * 0.1]), cuda),
+              pre_relu=True, emit_input=True)
+
+    def run():
+        return (rblock_kernel.chain_conv(x, wt, b, **kw),
+                conv_kernel.conv3x3(x[None], wt, b, relu=True),
+                conv_kernel.conv3x3_valid(x[None], wt, b))
+    run()
+    assert hasattr(wt, "_conv_tc_pack") and hasattr(b, "_bias_bfloat16")
+    cached = run()
+    del wt._conv_tc_pack, b._bias_bfloat16
+    fresh = run()
+    assert torch.equal(cached[0][0], fresh[0][0]) and torch.equal(cached[0][2], fresh[0][2])
+    assert torch.allclose(cached[0][1], fresh[0][1], rtol=1e-5, atol=0)
+    assert torch.equal(cached[1], fresh[1]) and torch.equal(cached[2], fresh[2])
 
 
 def _stats_err(got, want, count):
@@ -414,6 +480,7 @@ def test_kernels_launch_on_the_tensors_card(cuda):
     rng = np.random.default_rng(5)
     img = _t(rng.random((1, 40, 56, 3)), dev)
     flow = _t((rng.random((1, 40, 56, 2)) * 2 - 1) * 10, dev)
+    feat = _t(rng.random((1, 40, 56, 16)), dev)
     # 32 input channels: the conv needs more than the default 48 KiB of
     # shared memory, a limit that is lifted per card
     x = _t(rng.standard_normal((20, 24, 32)), dev)
@@ -456,6 +523,11 @@ def test_kernels_launch_on_the_tensors_card(cuda):
         got = warp_kernel.warp_banded(img, flow, 8)
         want = warp_kernel.warp_banded_plain(img, flow, 8)
         assert (got - want).abs().max().item() <= 1e-5
+        # K1's vector entry: 16 channels, one 16-byte vector a thread
+        before = warp_kernel.KERNEL.routes.get(warp_kernel.VEC_ENTRY, 0)
+        got = warp_kernel.warp_banded(feat, flow, 8)
+        assert warp_kernel.KERNEL.routes.get(warp_kernel.VEC_ENTRY, 0) == before + 1
+        assert (got - warp_kernel.warp_banded_plain(feat, flow, 8)).abs().max().item() <= 1e-5
         # K5's tables are uploaded to the card of the first call's tensor
         assert (strip(face) - strip.plain(face)).abs().max().item() <= 1e-5
         for g, ref in zip(rblock_kernel.chain_conv(x, wt, b),

@@ -1,5 +1,5 @@
-"""Time the host side of kernel K5's launches on a CUDA card, for the
-checkout in the current directory.
+"""Time the host side of kernel launches on a CUDA card (K5, K1, and K2 /
+K4 in bfloat16), for the checkout in the current directory.
 
   python3 tools/time_launch_path.py LABEL           # from the repository root
   cd other_checkout && python3 /path/to/tools/time_launch_path.py LABEL
@@ -17,6 +17,14 @@ At the VR path's shapes (922-px faces, overlap 128), in float32:
     launches plus torch ops before the summing entry, one launch after):
     host time per call as above, and CUDA events per call (median of 20,
     chip_smoke.py's timer).
+At the engine's 1080p prior warp: one K1 call, whole and Kernel.call
+alone, as for K5.
+At the 1080p stylizer's shapes, in bfloat16 on the tensor-core route
+(conv_tc.cu): one K2 call (290x500x128 -> 128 with the instance-norm
+prologue and the emitted input) and one K4 call (4x290x500x128 -> 128
+VALID), host microseconds per whole call over 50 calls without a
+synchronisation (the calls' device time stays ahead of the host's) and
+CUDA events per call.
 Comparing two checkouts means running this in each, on one card, in turns
 (A, B, B, A).
 """
@@ -83,6 +91,37 @@ def main(label: str) -> int:
         ev = cs._time_ms(torch, run)
         print(f"{label} K5 {name}: {launches} K5 launches per call, host {host:.1f} us per "
               f"call, events {ev:.4f} ms", flush=True)
+    from fast_artistic_videos_tpu_torch.ops import conv_kernel, rblock_kernel, warp_kernel
+
+    # K1 at the engine's prior warp (1080x1920x3 float32, band 16): the
+    # whole call and Kernel.call alone (fav_warp_banded, one pixel a thread;
+    # the same C signature in older checkouts)
+    img1 = torch.rand((1, 1080, 1920, 3), generator=g).to(dev)
+    flow1 = ((torch.rand((1, 1080, 1920, 2), generator=g) * 2 - 1) * 19).to(dev)
+    out1 = torch.empty_like(img1)
+    k1 = warp_kernel.KERNEL
+    args1 = [_build.ptr(t) for t in (img1, flow1, out1)] + [1, 1080, 1920, 3, 16, 0]
+    call_us = _host_us(torch, lambda: warp_kernel.warp_banded(img1, flow1, 16), 500)
+    launch_us = _host_us(torch, lambda: k1.call("fav_warp_banded", dev, *args1), 500)
+    print(f"{label} K1 call (1080x1920x3 float32, band 16): host {call_us:.2f} us per call; "
+          f"Kernel.call alone {launch_us:.2f} us; the wrapper's own share "
+          f"{call_us - launch_us:.2f} us", flush=True)
+
+    bf = torch.bfloat16
+    x = torch.randn(290, 500, 128, generator=g).to(dev, bf)
+    x4 = torch.randn(4, 290, 500, 128, generator=g).to(dev, bf)
+    wt = (torch.randn(128, 128, 3, 3, generator=g) / 34).to(dev)
+    b = (torch.randn(128, generator=g) * 0.1).to(dev)
+    eff = torch.stack([torch.rand(128, generator=g) + 0.5,
+                       torch.randn(128, generator=g) * 0.1]).to(dev)
+    for name, run in (("K2 bf16 290x500x128 -> 128, prologue + emit",
+                       lambda: rblock_kernel.chain_conv(x, wt, b, eff=eff, pre_relu=True,
+                                                        emit_input=True)),
+                      ("K4 bf16 4x290x500x128 -> 128 VALID",
+                       lambda: conv_kernel.conv3x3_valid(x4, wt, b))):
+        host = _host_us(torch, run, 50)
+        ev = cs._time_ms(torch, run)
+        print(f"{label} {name}: host {host:.1f} us per call, events {ev:.4f} ms", flush=True)
     return 0
 
 
