@@ -28,8 +28,9 @@ Phases (any failure exits non-zero, before the result line is printed):
      cached and packed afresh, with the host microseconds per call of
      both. K1 takes the C entry ops/warp_kernel.py's warp_route names
      (fav_warp_banded for C <= 4, fav_warp_banded_vec otherwise), each
-     case beside grid_sample; after phase 10, K1 also runs at every (shape,
-     dtype, band) that phases 4, 6 and 9 launched and this list lacks;
+     case beside grid_sample; after phase 13, K1 also runs at every (shape,
+     dtype, band) that phases 4, 6, 9, 11 and 13 launched and this list
+     lacks;
   4. the 2D main path: the streaming stylizer (bundled demo model, bundled
      flow estimator, flow at half resolution) on 12 seeded 1080p pan
      frames, float32 then bfloat16, through the CLI's build functions and
@@ -72,7 +73,26 @@ Phases (any failure exits non-zero, before the result line is printed):
      without PNG; then --scale_factor 0.5 (outputs at full size, finite);
  10. the port CLI on the card against the JAX package's committed outputs of
      its other modes (tests/fixtures/torch_parity_batch.npz: batched,
-     feature reuse, scale 0.5, phase-resident), mean-abs <= 1e-2 per frame.
+     feature reuse, scale 0.5, phase-resident), mean-abs <= 1e-2 per frame;
+ 11. the 2D --evaluate path: phase 4's 12 frames, float32, through the CLI's
+     build functions (build_evaluator too) and VideoDriver.run, with a
+     full-width VGG-16 written from a numpy seed, the bundled candy style
+     image, and the pan's ground-truth .flo / .pgm files for the temporal
+     term: launches as in phase 4 (the evaluator launches no kernel), the
+     VGG weights on the card, 3 finite series of 12 and 3 means, and the
+     temporal error with the ground-truth flow below the same evaluator's
+     with zero flow; the scorer's ms per frame on CUDA events;
+ 12. the port's evaluators on the card against the JAX evaluators' rows
+     (tests/fixtures/torch_parity_eval.npz) on the content frames and
+     outputs of the 2D and VR fixtures, rtol 1e-4;
+ 13. make_opt_flow --device cuda on 6 of the 1080p frames (K1 6 launches a
+     pair, finite flows near the pan) and the stylize CLI on its files
+     (--flow_pattern / --occlusions_pattern); stylize_vr_video_file
+     --frames_dir on 3 seeded 3072x1536 equirect frames at --face_size 768
+     (finite, non-degenerate equirect output); the VR --evaluate run at
+     phase 6's face size on 2 frames (launches as phase 6's, 7 finite series
+     of 12, the scorer's ms per face). K1's launches of phases 11 and 13 are
+     recorded by shape as those of phases 4, 6 and 9 are.
 
 The last lines of standard output are the card's name and power limit, a
 JSON line with one row per kernel (name, route, source, the TPU kernel it
@@ -227,9 +247,9 @@ def _check_routes(kernels, launches, dtype, where):
 
 
 class WarpShapes:
-    """K1's launches on the main paths (phases 4, 6 and 9) by (shape, dtype,
-    band, C entry), and the inputs of the first launch of each, kept on the
-    card: phase 3 adds a case for each shape its own list lacks, and times
+    """K1's launches on the main paths (phases 4, 6, 9, 11 and 13) by (shape,
+    dtype, band, C entry), and the inputs of the first launch of each, kept
+    on the card: phase 3 adds a case for each shape its own list lacks, and times
     K1 on the flows the main paths produced (their taps lie close together)
     beside its seeded random flows (whose taps scatter over the whole band).
     `recording()` wraps warp_kernel.warp_banded, here in the script and not
@@ -437,7 +457,7 @@ def warp_cases(torch, g, out, shape, band, dtype, tol, inputs=None):
 
 def check_recorded_warps(torch, res, k1):
     """Phase 3, continued after the main paths: K1 at each (shape, dtype,
-    band) that phases 4, 6 and 9 launched and phase 3's list lacks, on
+    band) that phases 4, 6, 9, 11 and 13 launched and phase 3's list lacks, on
     seeded random flows, then at every one of them on the inputs of its
     first launch there."""
     g = torch.Generator(device="cpu").manual_seed(4321)
@@ -1390,6 +1410,361 @@ def check_batch_fixture(torch, workdir):
             raise AssertionError(f"batch fixture parity {name} failed: {err}")
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: evaluation, the flow-file and VR-file paths
+# ---------------------------------------------------------------------------
+
+EVAL_VGG_SEED = 20261019     # tools/make_torch_parity_fixture.py's EVAL_VGG_SEED
+EQUI_SIZE, EQUI_FACE, EQUI_FRAMES = (1536, 3072), 768, 3
+
+
+def vgg_npz(seed, path):
+    """A full-width VGG-16 .npz (HWIO) from a numpy seed, by
+    tools/make_torch_parity_fixture.py's law: per conv in order, weights
+    then bias uniform in (-s, s), s = 1/sqrt(9 Cin), float32."""
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.models import vgg
+
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for idx, op, cin, cout in vgg.VGG16_LAYOUT:
+        if op == "conv":
+            s = 1.0 / np.sqrt(9 * cin)
+            flat[f"conv{idx:02d}/w"] = rng.uniform(-s, s, (3, 3, cin, cout)).astype(np.float32)
+            flat[f"conv{idx:02d}/b"] = rng.uniform(-s, s, cout).astype(np.float32)
+    np.savez(path, **flat)
+    return path
+
+
+def write_pan_flow(workdir, n, h, w, step, faces=()):
+    """Ground truth of a pan_frames pan (tools/make_torch_parity_fixture.py's
+    write_pan_flow): backward flow exactly `step`, certainty 0 in the band
+    the pan reveals. Returns the flow and certainty patterns."""
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.core import io
+
+    os.makedirs(workdir, exist_ok=True)
+    sx, sy = step
+    flow = np.empty((h, w, 2), np.float32)
+    flow[..., 0], flow[..., 1] = sx, sy
+    ys, xs = np.mgrid[0:h, 0:w]
+    cert = (((xs + sx) <= w - 1) & ((ys + sy) <= h - 1)).astype(np.uint8) * 255
+    suffixes = [f"_{k}" for k in faces] or [""]
+    for t in range(2, n + 1):
+        for sfx in suffixes:
+            io.write_flo(os.path.join(workdir, f"backward_{t}_{t - 1}{sfx}.flo"), flow)
+            io.write_pgm(os.path.join(workdir, f"reliable_{t}_{t - 1}{sfx}.pgm"), cert)
+    tail = "_%d" if faces else ""
+    return (os.path.join(workdir, "backward_[%d]_{%d}" + tail + ".flo"),
+            os.path.join(workdir, "reliable_[%d]_{%d}" + tail + ".pgm"))
+
+
+def _eval_file(path):
+    lines = open(path).read().strip().split("\n")
+    n = len(lines) // 2
+    return ([[float(v) for v in line.split(";")] for line in lines[:n]],
+            [float(v) for v in lines[n:]])
+
+
+class _Timed:
+    """Wraps a callable; the CUDA-event milliseconds of each call."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.ms, self.last = torch, fn, [], None
+
+    def __call__(self, *a):
+        s = self.torch.cuda.Event(enable_timing=True)
+        e = self.torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = self.fn(*a)
+        e.record()
+        e.synchronize()
+        self.ms.append(s.elapsed_time(e))
+        self.last = a
+        return out
+
+
+def _median(v):
+    v = sorted(v)
+    return v[len(v) // 2]
+
+
+def run_eval_path(torch, workdir, k1, smi):
+    """Phase 11: the 2D --evaluate path at 1080p, float32. Returns
+    {"scorer_ms": .., "row_ms": ..}."""
+    import dataclasses
+    import math
+
+    from fast_artistic_videos_tpu_torch.cli import stylize_video as cli
+    from fast_artistic_videos_tpu_torch.models import registry
+    from fast_artistic_videos_tpu_torch.video.driver_video import VideoDriver
+
+    kernels = _kernels()
+    n = FRAMES_1080
+    pattern = os.path.join(workdir, "frame_%05d.ppm")
+    gt = write_pan_flow(os.path.join(workdir, "eval_gt"), n, *SIZE_1080, PAN_1080)
+    zero = write_pan_flow(os.path.join(workdir, "eval_zero"), n, *SIZE_1080, (0, 0))
+    evfile = os.path.join(workdir, "eval_2d.txt")
+    opt = dataclasses.replace(
+        _options(pattern, os.path.join(workdir, "eval", "o"), "float32", n),
+        evaluate=True, evaluation_file=evfile,
+        loss_network=vgg_npz(EVAL_VGG_SEED, os.path.join(workdir, "vgg16.npz")),
+        style_image=registry.style_fixture("candy"),
+        flow_pattern_eval=gt[0], occlusions_pattern_eval=gt[1])
+    device = cli.resolve_device("cuda")
+    engine = cli.build_engine(opt, device)
+    provider = cli.build_flow_provider(opt, device)
+    evaluator = cli.build_evaluator(opt, device)
+    if not all(leaf.is_cuda for p in evaluator.scorer.vgg_params.values()
+               for leaf in p.values()):
+        raise AssertionError("eval path: the scorer's VGG weights are not on the card")
+    scorer = evaluator.scorer = _Timed(torch, evaluator.scorer)
+    row_fn = _Timed(torch, evaluator)
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.monotonic()
+    with k1.recording():
+        results = VideoDriver(engine, opt, eval_fn=row_fn, flow_provider=provider).run(
+            progress=False)
+    secs = time.monotonic() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    k1.check(kernels["warp_banded"], "eval path")
+    expect = {"front_conv": 3 * n, "res_chain_conv": 10 * n, "warp_banded": (n - 1) * 8,
+              "conv3x3": 0, "strip_warp": 0}
+    log(f"eval path float32: {len(results)} frames {SIZE_1080} with --evaluate in "
+        f"{secs:.3f} s (host clock), launches {launches}, expected {expect}")
+    if len(results) != n or launches != expect:
+        raise AssertionError(f"eval path: launches {launches} != {expect}")
+    _check_routes(kernels, launches, "float32", "eval path")
+    series, means = _eval_file(evfile)
+    if (len(series) != 3 or any(len(s) != n for s in series) or len(means) != 3
+            or not all(math.isfinite(v) for s in series + [means] for v in s)):
+        raise AssertionError(f"eval path: bad evaluation file {series} {means}")
+    # the temporal term measures what it should: the ground-truth flow
+    # explains the last pair better than zero flow does
+    i, content, stylized, prev = row_fn.last
+    with_gt = series[2][-1]
+    evaluator.opt = dataclasses.replace(opt, flow_pattern_eval=zero[0],
+                                        occlusions_pattern_eval=zero[1])
+    with_zero = evaluator(i, content, stylized, prev)[2]
+    evaluator.opt = opt
+    log(f"eval path: style {[round(v, 4) for v in series[0]]}, content "
+        f"{[round(v, 4) for v in series[1]]}, temporal {[round(v, 6) for v in series[2]]}; "
+        f"means {means}; frame {i} temporal error with the ground-truth flow {with_gt:.6g}, "
+        f"with zero flow {with_zero:.6g}")
+    if not (0 < with_gt < with_zero) or series[2][0] != 0.0:
+        raise AssertionError(f"eval path: temporal error {with_gt} (ground truth) vs "
+                             f"{with_zero} (zero flow)")
+    out = {"scorer_ms": _median(scorer.ms[1:]), "row_ms": _median(row_fn.ms[1:])}
+    log(f"eval path 1080p float32: scorer {out['scorer_ms']:.3f} ms/frame, whole row "
+        f"(scorer + flow files + temporal) {out['row_ms']:.3f} ms/frame (CUDA events, "
+        f"median of {n - 1}); {smi}")
+    return out
+
+
+
+def check_eval_fixture(torch, workdir):
+    """Phase 12: the port's evaluators on the card against the JAX
+    evaluators' rows (tests/fixtures/torch_parity_eval.npz) on the content
+    frames and stylized outputs of the 2D and VR fixtures, rtol 1e-4 (atol
+    1e-7 for the zeros)."""
+    import types
+
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.cli import stylize_video as cli
+    from fast_artistic_videos_tpu_torch.core import config
+    from fast_artistic_videos_tpu_torch.models import registry
+    from fast_artistic_videos_tpu_torch.video import driver_vr, evaluation
+
+    def load(name):
+        with np.load(os.path.join(ROOT, "tests", "fixtures", name)) as z:
+            return {k: z[k] for k in z.files}
+    fx, demo, vr_fx = (load(f"torch_parity_{k}.npz") for k in ("eval", "demo", "vr"))
+    dev = cli.resolve_device("cuda")
+    d = os.path.join(workdir, "eval_fixture")
+    vgg = vgg_npz(int(fx["vgg_seed"]), os.path.join(workdir, "eval_fixture_vgg16.npz"))
+    style = registry.style_fixture("candy")
+
+    def options(cls, pats, **kw):
+        return cls(evaluate=True, loss_network=vgg, style_image=style,
+                   style_image_size=int(fx["style_image_size"]), flow_pattern_eval=pats[0],
+                   occlusions_pattern_eval=pats[1], **kw)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a, np.float32) / 255.0).to(dev)
+    n, h, w = demo["frames"].shape[:3]
+    pats = write_pan_flow(d, n, h, w, tuple(int(v) for v in demo["step"]))
+    ev = evaluation.VideoEvaluator(options(config.StylizeOptions, pats), dev)
+    rows_2d = [ev(i, t(demo["frames"][i - 1]), t(demo["outputs"][i - 1]),
+                  t(demo["outputs"][i - 2]) if i > 1 else None) for i in range(1, n + 1)]
+    nv, _, face = vr_fx["faces"].shape[:3]
+    overlap = int(vr_fx["overlap"])
+    vpats = write_pan_flow(os.path.join(d, "vr"), nv, face, face,
+                           tuple(int(v) for v in vr_fx["step"]), faces=range(1, 7))
+    vopt = options(driver_vr.VROptions, vpats, overlap_pixel_w=overlap,
+                   overlap_pixel_h=overlap)
+    vev = evaluation.VREvaluator(vopt, dev)
+    geo = driver_vr._Geometry(face, face, vopt, dev)
+    rows_vr = []
+    for f in range(nv):
+        for pos in range(6):
+            drv = types.SimpleNamespace(
+                geo=geo, segments=[t(x) for x in vr_fx["outputs"][f]],
+                prev_segments=[t(x) for x in vr_fx["outputs"][max(f - 1, 0)]],
+                last_content=t(vr_fx["faces"][f][driver_vr.PROC_ORDER[pos] - 1]))
+            rows_vr.append(vev(drv, f * 6 + pos + 1))
+    worst = 0.0
+    for got, want, name in ((rows_2d, fx["rows_2d"], "2D"), (rows_vr, fx["rows_vr"], "VR")):
+        got = np.asarray(got)
+        excess = np.abs(got - want) - (1e-4 * np.abs(want) + 1e-7)
+        rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-7)
+        worst = max(worst, float(rel.max()))
+        log(f"eval fixture parity {name} (port evaluator on the card vs JAX evaluator on "
+            f"CPU): {got.shape[0]} rows of {got.shape[1]}, max relative error "
+            f"{float(rel.max()):.3g} (tol rtol 1e-4, atol 1e-7)")
+        if got.shape != want.shape or (excess > 0).any():
+            raise AssertionError(f"eval fixture parity {name} failed: {got} vs {want}")
+    return worst
+
+
+def run_flow_file_paths(torch, workdir, k1, smi):
+    """Phase 13: make_opt_flow on the card, then the stylize CLI on its
+    files; stylize_vr_video_file --frames_dir on equirect frames; the VR
+    --evaluate run. Returns {"scorer_face_ms": .., ...}."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.cli import make_opt_flow, stylize_video as cli
+    from fast_artistic_videos_tpu_torch.cli import stylize_vr_video as vcli
+    from fast_artistic_videos_tpu_torch.cli import stylize_vr_video_file
+    from fast_artistic_videos_tpu_torch.core import io
+    from fast_artistic_videos_tpu_torch.models import registry
+    from fast_artistic_videos_tpu_torch.video.driver_vr import VRDriver
+
+    kernels = _kernels()
+    out = {}
+    # (a) make_opt_flow --device cuda on 6 of the 1080p frames, then the
+    # stylize CLI through --flow_pattern / --occlusions_pattern
+    n = min(6, FRAMES_1080)
+    d = os.path.join(workdir, "optflow")
+    os.makedirs(d, exist_ok=True)
+    for t in range(1, n + 1):
+        os.symlink(os.path.join(workdir, f"frame_{t:05d}.ppm"),
+                   os.path.join(d, f"frame_{t:05d}.ppm"))
+    pattern = os.path.join(d, "frame_%05d.ppm")
+    _reset(kernels)
+    t0 = time.monotonic()
+    with k1.recording():
+        make_opt_flow.main(["--input_pattern", pattern, "--out_dir", os.path.join(d, "flow"),
+                            "--flow_model", "bundled", "--device", "cuda"])
+    out["make_opt_flow_s"], out["pairs"] = time.monotonic() - t0, n - 1
+    launches = {name: k.launches for name, k in kernels.items()}
+    k1.check(kernels["warp_banded"], "make_opt_flow")
+    # 3 feature warps per direction per pair; the check samples exactly
+    expect = {name: 0 for name in kernels}
+    expect["warp_banded"] = 6 * (n - 1)
+    log(f"make_opt_flow 1080p: {n - 1} pairs in {out['make_opt_flow_s']:.3f} s (host clock), "
+        f"launches {launches}, expected {expect}")
+    if launches != expect:
+        raise AssertionError(f"make_opt_flow: launches {launches} != {expect}")
+    for t in range(2, n + 1):
+        for name in (f"backward_{t}_{t - 1}.flo", f"forward_{t - 1}_{t}.flo"):
+            f = io.read_flo(os.path.join(d, "flow", name))
+            if f.shape != SIZE_1080 + (2,) or not np.isfinite(f).all():
+                raise AssertionError(f"make_opt_flow: bad {name}")
+        bwd = io.read_flo(os.path.join(d, "flow", f"backward_{t}_{t - 1}.flo"))
+        med = np.median(bwd[64:-64, 64:-64].reshape(-1, 2), axis=0)
+        if np.abs(med - PAN_1080).max() > 0.5:
+            raise AssertionError(f"make_opt_flow: pair {t}: median flow {med} != {PAN_1080}")
+        for name in (f"reliable_{t}_{t - 1}.pgm", f"reliable_{t - 1}_{t}.pgm"):
+            if io.read_pnm(os.path.join(d, "flow", name)).shape[:2] != SIZE_1080:
+                raise AssertionError(f"make_opt_flow: bad {name}")
+    opt = dataclasses.replace(
+        _options(pattern, os.path.join(d, "out", "o"), "float32", n), flow_model="",
+        flow_pattern=os.path.join(d, "flow", "backward_[%d]_{%d}.flo"),
+        occlusions_pattern=os.path.join(d, "flow", "reliable_[%d]_{%d}.pgm"))
+    _reset(kernels)
+    outs = []
+    with k1.recording():
+        results, secs = _drive(torch, opt, record=outs)
+    launches = {name: k.launches for name, k in kernels.items()}
+    k1.check(kernels["warp_banded"], "file flow")
+    expect = {"front_conv": 3 * n, "res_chain_conv": 10 * n, "warp_banded": n - 1,
+              "conv3x3": 0, "strip_warp": 0}
+    log(f"stylize CLI on make_opt_flow's files, float32: {len(results)} frames in {secs:.3f} s, "
+        f"launches {launches}, expected {expect}")
+    if (len(results) != n or launches != expect
+            or not all(bool(torch.isfinite(o).all()) for o in outs)):
+        raise AssertionError(f"file flow: launches {launches} != {expect} or bad output")
+    _check_routes(kernels, launches, "float32", "file flow")
+    # (b) stylize_vr_video_file --frames_dir on seeded equirect frames
+    e = os.path.join(workdir, "equi")
+    os.makedirs(e, exist_ok=True)
+    for t, f in enumerate(pan_frames(13, EQUI_FRAMES, *EQUI_SIZE, (8, 0)), 1):
+        io.write_ppm(os.path.join(e, f"equi_{t:05d}.ppm"), f)
+    _reset(kernels)
+    t0 = time.monotonic()
+    with k1.recording():
+        rc = stylize_vr_video_file.main([
+            "--frames_dir", e, "--model_vid", "demo", "--flow_model", "bundled",
+            "--flow_scale", "0.5", "--face_size", str(EQUI_FACE), "--no_encode",
+            "--out_dir", os.path.join(workdir, "equi_out"), "--device", "cuda"])
+    out["vr_file_s"] = time.monotonic() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    k1.check(kernels["warp_banded"], "VR file CLI")
+    log(f"stylize_vr_video_file: {EQUI_FRAMES} equirect frames {EQUI_SIZE[1]}x{EQUI_SIZE[0]}, "
+        f"faces {EQUI_FACE} + {EQUI_FACE // 6} overlap, bfloat16, in {out['vr_file_s']:.3f} s "
+        f"(host clock, face split and PNG included), launches {launches}")
+    if rc != 0 or not all(launches[k] > 0 for k in ("warp_banded", "res_chain_conv",
+                                                     "front_conv", "strip_warp")):
+        raise AssertionError(f"stylize_vr_video_file: rc {rc}, launches {launches}")
+    for t in range(1, EQUI_FRAMES + 1):
+        img = io.load_image_u8(os.path.join(workdir, "equi_out", f"out-{t:05d}_equi.png"))
+        if img.shape != EQUI_SIZE + (3,) or img.std() < 1.0:
+            raise AssertionError(f"stylize_vr_video_file: bad equirect frame {t}")
+    # (c) the VR --evaluate run at phase 6's face size, 2 frames
+    vd = os.path.join(workdir, "vr")
+    nv = 2
+    gt = write_pan_flow(os.path.join(workdir, "vr_gt"), nv, VR_FACE, VR_FACE, VR_PAN,
+                        faces=range(1, 7))
+    evfile = os.path.join(workdir, "eval_vr.txt")
+    vopt = dataclasses.replace(
+        _vr_options(os.path.join(vd, "f%04d_%d.ppm"), os.path.join(vd, "e", "o"), "float32",
+                    nv),
+        evaluate=True, evaluation_file=evfile,
+        loss_network=os.path.join(workdir, "vgg16.npz"),      # phase 11's
+        style_image=registry.style_fixture("candy"),
+        flow_pattern_eval=gt[0], occlusions_pattern_eval=gt[1])
+    device = cli.resolve_device("cuda")
+    evaluator = vcli.build_evaluator(vopt, device)
+    if not evaluator.scorer.vgg_params["conv01"]["w"].is_cuda:
+        raise AssertionError("VR eval: the scorer's VGG weights are not on the card")
+    scorer = evaluator.scorer = _Timed(torch, evaluator.scorer)
+    driver = VRDriver(vcli.build_engine(vopt, device), vopt, eval_fn=evaluator,
+                      batched_flow_provider=vcli.build_flow_provider(vopt, device))
+    _reset(kernels)
+    with k1.recording():
+        faces_done = driver.run(progress=False)
+    launches = {name: k.launches for name, k in kernels.items()}
+    k1.check(kernels["warp_banded"], "VR --evaluate")
+    expect = {"strip_warp": 6 * nv + 4, "front_conv": 18 * nv, "res_chain_conv": 60 * nv,
+              "warp_banded": 18 * (nv - 1), "conv3x3": 0}
+    series, means = _eval_file(evfile)
+    log(f"VR --evaluate float32: {faces_done} faces, launches {launches}, expected {expect}; "
+        f"series {[[round(v, 5) for v in s] for s in series]}, means {means}")
+    if (faces_done != 6 * nv or launches != expect or len(series) != 7
+            or any(len(s) != 6 * nv for s in series) or len(means) != 7
+            or not all(math.isfinite(v) for s in series + [means] for v in s)
+            or not all(v > 0 for v in series[6][6:])):
+        raise AssertionError("VR --evaluate: bad run or evaluation file")
+    out["scorer_face_ms"] = _median(scorer.ms[6:])
+    log(f"VR --evaluate {VR_FACE}^2 faces: scorer {out['scorer_face_ms']:.3f} ms/face (CUDA "
+        f"events, median of the second frame's 6); {smi}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1441,7 +1816,14 @@ def main() -> int:
         b_counted, b_routes, b_fps, b_fps_no_png = run_batched_path(torch, work)
         r_fps = run_reuse_and_scale(torch, work, k1)
         check_batch_fixture(torch, work)
-    # 3, continued: K1 at every shape phases 4, 6 and 9 launched
+        # 11. the 2D --evaluate path; 12. the evaluators against the JAX
+        # evaluators' fixture; 13. make_opt_flow, the VR file CLI, VR --evaluate
+        t_new = time.monotonic()
+        ev_ms = run_eval_path(torch, work, k1, smi)
+        eval_worst = check_eval_fixture(torch, work)
+        ff = run_flow_file_paths(torch, work, k1, smi)
+        t_new = time.monotonic() - t_new
+    # 3, continued: K1 at every shape phases 4, 6, 9, 11 and 13 launched
     check_recorded_warps(torch, res, k1)
     torch.cuda.synchronize()
 
@@ -1486,7 +1868,8 @@ def main() -> int:
                          library_device_ms=c["library_device_ms"])
         if name == "warp_banded":
             # K1's launches by C entry on the 2D path, and every case of
-            # phase 3 with its launches on the main paths (phases 4, 6, 9)
+            # phase 3 with its launches on the main paths (phases 4, 6, 9,
+            # 11 and 13)
             row["routes"] = k1_routes["float32"]
             row["bfloat16"]["routes"] = k1_routes["bfloat16"]
             row["cases"] = [
@@ -1521,6 +1904,11 @@ def main() -> int:
     log(f"fps 1080p feature reuse 3 float32 {r_fps['reuse']:.3f} "
         f"({r_fps['reuse_no_png']:.3f} without PNG; the exact run {fps['float32']:.3f}); "
         f"scale 0.5 float32 {r_fps['scale']:.3f}")
+    log(f"evaluation: scorer {ev_ms['scorer_ms']:.3f} ms per 1080p frame (whole row "
+        f"{ev_ms['row_ms']:.3f}), {ff['scorer_face_ms']:.3f} ms per {VR_FACE}^2 face; evaluator "
+        f"fixture max relative error {eval_worst:.3g}; make_opt_flow {ff['make_opt_flow_s']:.3f} s "
+        f"for {ff['pairs']} pairs, stylize_vr_video_file {ff['vr_file_s']:.3f} s for {EQUI_FRAMES} frames; "
+        f"phases 11-13 took {t_new:.1f} s; {smi}")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,14 +10,18 @@ Zero-download example (bundled demo model and flow estimator):
       --input_pattern frames/frame_%05d.ppm --model_vid demo \\
       --flow_model bundled --flow_scale 0.5 --output_prefix out/o
 
-Every flag of the JAX CLI is carried except ``--evaluate`` (evaluation is
-slice B of ROADMAP.md), which raises. ``--phase_resident`` keeps the JAX
-CLI's validation and runs the plain path: the 16-phase quarter-resolution
+Every flag of the JAX CLI is carried. ``--evaluate`` scores every frame
+(style, content and temporal error against ``--loss_network``,
+``--style_image`` and the ground-truth ``--flow_pattern_eval`` /
+``--occlusions_pattern_eval``) on the same device as the stylizer, and
+appends the series and their means to ``--evaluation_file``.
+``--phase_resident`` keeps the JAX CLI's validation and runs the plain path: the 16-phase quarter-resolution
 layout is a TPU layout, and the JAX package holds the two modes to within
 one uint8 step of each other.
 
-The port's float32 convs run with TF32 off whatever the caller's cuDNN
-flag says (``core.device.float32_convs``), so float32 numbers are float32.
+The port's float32 convs and matrix products run with TF32 off whatever
+the caller's flags say (``core.device.float32_convs``), so float32 numbers
+are float32.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 
 from ..core.config import StylizeOptions
 from ..models import checkpoint, stylizer
-from ..video.driver_video import VideoDriver, check_supported
+from ..video.driver_video import VideoDriver
 from ..video.engine import EngineConfig, StylizerEngine
 
 
@@ -111,6 +115,15 @@ def build_flow_provider(opt: StylizeOptions, device):
         erode_window=erode_window)
 
 
+def build_evaluator(opt: StylizeOptions, device):
+    """The --evaluate scorer on the stylizer's device, or None."""
+    if not opt.evaluate:
+        return None
+    from ..video.evaluation import VideoEvaluator
+
+    return VideoEvaluator(opt, device)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -136,11 +149,11 @@ def main(argv=None):
             p.error("--phase_resident is incompatible with --scale_factor, "
                     "--feature_reuse, --exact_warp, --create_inconsistent "
                     "and non-default --fill_occlusions")
-    check_supported(opt)
     device = resolve_device(args.device)
     engine = build_engine(opt, device)
     flow_provider = build_flow_provider(opt, device) if opt.flow_model else None
-    results = VideoDriver(engine, opt, flow_provider=flow_provider).run()
+    results = VideoDriver(engine, opt, eval_fn=build_evaluator(opt, device),
+                          flow_provider=flow_provider).run()
     if results:
         total = sum(r.seconds for r in results)
         print(f"{len(results)} frames in {total:.2f}s "

@@ -2,17 +2,21 @@
 of ``fast_artistic_videos_tpu/cli/stylize_video_file.py`` (the reference's
 ``stylizeVideo_*.sh``), with ``--device`` (default ``cuda``).
 
-Pipeline: ffmpeg decode -> temporally consistent stylization with
-streaming flow on the device (``cli.stylize_video``) -> ffmpeg encode. The
-ffmpeg steps are skipped with --frames_dir / --no_encode. The reference's
-concurrent flow-file producer (``--flow_background``) needs
-``cli/make_opt_flow.py``, which is not ported yet (ROADMAP.md slice D).
+Pipeline: ffmpeg decode -> optical flow (streaming on the device by
+default; or, with --flow_background, a concurrent flow-file producer,
+``cli.make_opt_flow``, like the reference's background job, :80-82) ->
+temporally consistent stylization (``cli.stylize_video``) -> ffmpeg encode.
+The ffmpeg steps are skipped with --frames_dir / --no_encode. The
+background producer runs on the stylizer's ``--device``: processes share
+a card (the JAX CLI puts its producer on the CPU instead).
 
 Examples:
   python -m fast_artistic_videos_tpu_torch.cli.stylize_video_file video.mp4 \\
       --model_vid candy-video.npz --flow_model bundled
   python -m fast_artistic_videos_tpu_torch.cli.stylize_video_file \\
       --frames_dir frames --model_vid demo --flow_model bundled --no_encode
+  python -m fast_artistic_videos_tpu_torch.cli.stylize_video_file \\
+      --frames_dir frames --model_vid demo --flow_model bundled --flow_background
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import argparse
 import os
 import shutil
 import subprocess
+import sys
 
 
 def _ffmpeg():
@@ -42,7 +47,7 @@ def main(argv=None):
     p.add_argument("--flow_model", default="", help="flow weights (.npz) or 'bundled'")
     p.add_argument("--flow_background", action="store_true",
                    help="produce flow files in a concurrent process (reference-style) "
-                        "instead of streaming in-process; not ported yet")
+                        "instead of streaming in-process")
     p.add_argument("--out_dir", default="")
     p.add_argument("--resolution", default="", help="w:h decode scaling")
     p.add_argument("--dtype", default="bfloat16")
@@ -57,10 +62,6 @@ def main(argv=None):
 
     if not args.video and not args.frames_dir:
         p.error("give a video file or --frames_dir")
-    if args.flow_background:
-        raise NotImplementedError(
-            "--flow_background needs cli/make_opt_flow.py, which the PyTorch "
-            "port does not carry yet (ROADMAP.md slice D)")
     if not args.flow_model:
         p.error("need --flow_model (streaming flow on the device) — external "
                 "flow files can be used directly via cli.stylize_video patterns")
@@ -80,19 +81,45 @@ def main(argv=None):
         print("decoding:", " ".join(cmd))
         subprocess.run(cmd, check=True)
 
+    input_pattern = os.path.join(frames_dir, "frame_%05d.ppm")
     out_prefix = os.path.join(workdir, "out")
-    from . import stylize_video
-
-    rc = stylize_video.main([
+    stylize_args = [
         "--model_vid", args.model_vid,
         "--model_img", args.model_img,
-        "--input_pattern", os.path.join(frames_dir, "frame_%05d.ppm"),
+        "--input_pattern", input_pattern,
         "--output_prefix", out_prefix,
         "--dtype", args.dtype,
         "--feature_reuse", str(args.feature_reuse),
-        "--flow_model", args.flow_model,
         "--device", args.device,
-    ])
+    ]
+    flow_proc = None
+    if args.flow_background:
+        flow_dir = os.path.join(workdir, "flow")
+        # concurrent producer; the stylizer polls for its files, exactly like
+        # the reference's background makeOptFlow job
+        flow_proc = subprocess.Popen(
+            [sys.executable, "-m", "fast_artistic_videos_tpu_torch.cli.make_opt_flow",
+             "--input_pattern", input_pattern, "--out_dir", flow_dir,
+             "--flow_model", args.flow_model, "--device", args.device],
+        )
+        stylize_args += [
+            "--flow_pattern", os.path.join(flow_dir, "backward_[%d]_{%d}.flo"),
+            "--occlusions_pattern", os.path.join(flow_dir, "reliable_[%d]_{%d}.pgm"),
+        ]
+    else:
+        stylize_args += ["--flow_model", args.flow_model]
+
+    from . import stylize_video
+
+    try:
+        rc = stylize_video.main(stylize_args)
+    except BaseException:
+        if flow_proc is not None:
+            flow_proc.kill()      # the producer dies with the stylizer
+        raise
+    finally:
+        if flow_proc is not None:
+            flow_proc.wait()
     if rc != 0:
         return rc
 

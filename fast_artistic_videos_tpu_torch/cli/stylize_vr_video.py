@@ -13,7 +13,12 @@ frame placeholders plus a trailing %d for the face. Zero-download example
       --input_pattern faces/f%04d_%d.ppm --model_vid demo \\
       --flow_model bundled --flow_scale 0.5 --output_prefix out/o
 
-The port's float32 convs run with TF32 off (``core.device.float32_convs``).
+``--evaluate`` scores every face (seam gradient ratios, cross-face edge
+error, style, content and temporal error) on the stylizer's device and
+appends the seven series and their means to ``--evaluation_file``.
+
+The port's float32 convs and matrix products run with TF32 off
+(``core.device.float32_convs``).
 """
 
 from __future__ import annotations
@@ -58,9 +63,6 @@ def parse_options(argv=None):
             and (not opt.flow_pattern or not opt.occlusions_pattern)):
         p.error("--flow_pattern and --occlusions_pattern are required "
                 "(or pass --flow_model for streaming flow, or --create_inconsistent)")
-    if opt.evaluate:
-        raise NotImplementedError("--evaluate is not carried by the PyTorch port "
-                                  "yet (evaluation is slice B, see ROADMAP.md)")
     return opt, args.device
 
 
@@ -77,12 +79,22 @@ def build_flow_provider(opt: VROptions, device):
         fast_check=opt.fast_check)
 
 
+def build_evaluator(opt: VROptions, device):
+    """The --evaluate scorer on the stylizer's device, or None."""
+    if not opt.evaluate:
+        return None
+    from ..video.evaluation import VREvaluator
+
+    return VREvaluator(opt, device)
+
+
 def main(argv=None):
     opt, device_name = parse_options(argv)
     device = resolve_device(device_name)
     engine = build_engine(opt, device)
     flow = build_flow_provider(opt, device) if opt.flow_model else None
-    n = VRDriver(engine, opt, batched_flow_provider=flow).run()
+    n = VRDriver(engine, opt, eval_fn=build_evaluator(opt, device),
+                 batched_flow_provider=flow).run()
     print(f"processed {n} faces ({n // 6} full frames)")
     return 0
 

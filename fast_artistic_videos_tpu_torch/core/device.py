@@ -6,9 +6,11 @@ the streaming flow providers, ``load_model``, ``params_from_numpy``,
 the CPU with ``device="cpu"``. Without a card the default raises: there is
 no silent fallback to the CPU.
 
-The port's cuDNN convolutions run inside :func:`float32_convs`, so a
-float32 conv is a float32 conv whatever ``torch.backends.cudnn.allow_tf32``
-says (PyTorch's default, True, runs them in TF32).
+The port's cuDNN convolutions and its float32 matrix products (the
+evaluator's Gram matrices) run inside :func:`float32_convs`, so a float32
+conv or product is a float32 one whatever ``torch.backends.cudnn.allow_tf32``
+and ``torch.backends.cuda.matmul.allow_tf32`` say (PyTorch's default for
+the cuDNN flag, True, runs convs in TF32).
 """
 
 from __future__ import annotations
@@ -31,11 +33,11 @@ def resolve(device=DEFAULT) -> torch.device:
 
 
 class _Float32Convs:
-    """Context manager: cuDNN convolutions inside it run with TF32 off. The
-    flag is process-wide and the flow provider's thread convolves while the
-    stylizer does, so entries are counted across threads: the first to
-    enter saves the caller's flag and turns TF32 off, the last to leave
-    puts the flag back."""
+    """Context manager: cuDNN convolutions and cuBLAS matrix products
+    inside it run with TF32 off. The flags are process-wide and the flow
+    provider's thread convolves while the stylizer does, so entries are
+    counted across threads: the first to enter saves the caller's flags and
+    turns TF32 off, the last to leave puts the flags back."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -45,15 +47,18 @@ class _Float32Convs:
     def __enter__(self):
         with self._lock:
             if self._depth == 0:
-                self._saved = torch.backends.cudnn.allow_tf32
+                self._saved = (torch.backends.cudnn.allow_tf32,
+                               torch.backends.cuda.matmul.allow_tf32)
                 torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
             self._depth += 1
 
     def __exit__(self, *exc):
         with self._lock:
             self._depth -= 1
             if self._depth == 0:
-                torch.backends.cudnn.allow_tf32 = self._saved
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = self._saved
         return False
 
 
@@ -62,5 +67,6 @@ _FLOAT32_CONVS = _Float32Convs()
 
 def float32_convs():
     """The scope around every cuDNN convolution of the port (the stylizer's
-    plain convs, the flow estimator's convs)."""
+    plain convs, the flow estimator's convs, the VGG-16 loss network) and
+    every float32 matrix product (``ops.gram``)."""
     return _FLOAT32_CONVS

@@ -14,7 +14,6 @@ in pixels of the level it lives on.
 
 from __future__ import annotations
 
-import os
 from typing import Dict, List
 
 import numpy as np
@@ -22,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core import device as device_mod
-from ..models.checkpoint import ASSETS, params_from_numpy
+from ..models import registry
+from ..models.checkpoint import params_from_numpy
 from ..ops import warp as warp_ops
 
 # (out_channels per level), finest first. Level l runs at stride 2^(l+1).
@@ -272,7 +272,7 @@ def load_params(path: str, device=device_mod.DEFAULT) -> Params:
     card unless ``device="cpu"``); ``bundled`` is the JAX package's in-tree
     checkpoint (``assets/flow_pwclite.npz``)."""
     if path == "bundled":
-        path = os.path.join(ASSETS, "flow_pwclite.npz")
+        path = registry.bundled_flow_weights()
     tree: Dict[str, Dict[str, np.ndarray]] = {}
     with np.load(path) as z:
         for key in z.files:

@@ -23,6 +23,27 @@ ASSETS = os.path.join(os.path.dirname(__file__), "..", "..",
                       "fast_artistic_videos_tpu", "assets")
 
 
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def save_model(path: str, params: Dict[str, Any], meta: Dict[str, Any]) -> None:
+    """Write a checkpoint in the JAX package's format from a numpy parameter
+    tree in its layout (conv kernels HWIO; the t7 importer's output). meta
+    must include: arch, in_channels, padding_type, use_instance_norm,
+    tanh_constant; extra keys are kept."""
+    flat = _flatten(params)
+    flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **flat)
+
+
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for key, v in flat.items():

@@ -9,6 +9,11 @@ pattern DSL. A prefetch thread loads and uploads frame i+1 (and runs the
 flow provider on it) while the device stylizes frame i; a writer thread
 saves the uint8 frames that come out of the same step.
 
+With an ``eval_fn`` (``video.evaluation.VideoEvaluator``, ``--evaluate``)
+every frame of the recurrent loop is scored on the device, against the
+previous stylized frame kept there as a tensor, and the rows are written
+to ``evaluation_file``.
+
 Modes: ``--create_inconsistent --inconsistent_batch N`` stylizes N
 independent frames per forward (``_run_batched``); ``--feature_reuse K``
 runs a full keyframe every K frames and advects the residual chain's delta
@@ -32,21 +37,15 @@ from ..core.config import StylizeOptions, format_flow_name
 from ..ops import warp
 from ..utils import pipeline
 from .engine import StylizerEngine, quantize_u8
-
-NOT_PORTED = "not carried by the PyTorch port yet (see ROADMAP.md)"
-
-
-def check_supported(opt: StylizeOptions) -> None:
-    """Raise for the options this port does not carry yet."""
-    if opt.evaluate:
-        raise NotImplementedError(f"--evaluate is {NOT_PORTED}")
+from .evaluation import write_eval_file
 
 
-def fix_occlusions_mask(cert: np.ndarray, flow: np.ndarray) -> np.ndarray:
+def fix_occlusions_mask(cert, flow):
     """Zero certainty where warping leaves no correspondence: the warp of an
-    all-ones image, thresholded at 0.5 (fast_artistic_video.lua:79-86)."""
-    weight = warp.warp_weight_map(torch.from_numpy(flow), *cert.shape).numpy()
-    return cert * np.sign(weight - 0.5).clip(min=0.0)
+    all-ones image, thresholded at 0.5 (fast_artistic_video.lua:79-86).
+    cert (H, W) and flow (H, W, 2) tensors, on their device."""
+    weight = warp.warp_weight_map(flow, *cert.shape)
+    return cert * torch.sign(weight - 0.5).clamp(min=0.0)
 
 
 def resize_bicubic(arr, scale: float):
@@ -71,15 +70,20 @@ class FrameResult:
 
 class VideoDriver:
     def __init__(self, engine: StylizerEngine, opt: StylizeOptions,
+                 eval_fn: Optional[Callable] = None,
                  flow_provider: Optional[Callable] = None):
-        """flow_provider: a streaming estimator (flow.provider
+        """eval_fn: called as eval_fn(i, content, stylized, prev_stylized)
+        with device tensors (content in [0, 1]; prev_stylized None for the
+        first frame scored), returning a row of floats or None.
+        flow_provider: a streaming estimator (flow.provider
         .StreamingFlowProvider) replacing the flow files; it sees every
         frame in order. On a continue_with resume it is primed with the last
         input frame, so the resumed frame warps the reloaded output."""
-        check_supported(opt)
         self.engine = engine
         self.opt = opt
+        self.eval_fn = eval_fn
         self.flow_provider = flow_provider
+        self.eval_rows: List[List[float]] = []
 
     # -- input loading ----------------------------------------------------
 
@@ -105,7 +109,7 @@ class VideoDriver:
         if opt.invert_occlusion:
             cert = 1.0 - cert
         if opt.fix_occlusions:
-            cert = fix_occlusions_mask(cert, flow)
+            cert = fix_occlusions_mask(torch.from_numpy(cert), torch.from_numpy(flow)).numpy()
         return flow, cert
 
     def _load_inputs(self, i: int):
@@ -178,6 +182,7 @@ class VideoDriver:
             # that already eroded the certainty would erode it twice
             raise ValueError("flow_provider.erode_window and feature_reuse > 1 "
                              "are mutually exclusive")
+        prev_out = None           # the previous output, for eval_fn
         writer = pipeline.AsyncWriter()
         try:
             for i, (frame, flow_cert) in pipeline.Prefetcher(self._load_inputs, indices):
@@ -218,11 +223,10 @@ class VideoDriver:
                         stylized = self.engine.stylize_next(
                             content, last_stylized, flow, cert, band_hint,
                             pre_eroded=pre_eroded)
+                out_full = stylized
+                if scale != 1.0:
+                    out_full = resize_bicubic(stylized, frame.shape[0] / stylized.shape[0])
                 if out_u8 is None:
-                    out_full = stylized
-                    if scale != 1.0:
-                        out_full = resize_bicubic(stylized,
-                                                  frame.shape[0] / stylized.shape[0])
                     out_u8 = quantize_u8(out_full)
                 dt = time.monotonic() - t0
                 out_path = self._out_path(i)
@@ -231,10 +235,17 @@ class VideoDriver:
                 writer.put(lambda p=out_path, s=out_u8: self.save(p, s.cpu().numpy()))
                 if progress:
                     print(f"frame {i}: {dt * 1000:.1f} ms -> {out_path}")
+                if self.eval_fn is not None:
+                    row = self.eval_fn(i, frame.float() / 255.0, out_full, prev_out)
+                    if row is not None:
+                        self.eval_rows.append(list(row))
+                    prev_out = out_full
                 last_stylized = stylized
                 results.append(FrameResult(i, out_path, dt))
         finally:
             writer.close()
+        if self.eval_rows and opt.evaluation_file:
+            write_eval_file(opt.evaluation_file, self.eval_rows)
         return results
 
     def _run_batched(self, indices, progress: bool) -> List[FrameResult]:

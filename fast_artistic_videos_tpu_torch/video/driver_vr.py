@@ -31,6 +31,11 @@ function (``_face_step``) for streamed and file-pattern flow; all tensors
 of a frame stay on the engine's device, and only the uint8 outputs come
 back, on the writer thread.
 
+With an ``eval_fn`` (``video.evaluation.VREvaluator``, ``--evaluate``) each
+face is scored on the device after it is stylized. Flow comes from the
+file patterns, from one batched provider for all six faces, or from one
+streaming provider per face position (``flow_provider_factory``).
+
 All indexing here is by processing position pos 0..5 (the reference's
 ``last_segments``); ``PROC_ORDER[pos]`` is the face number in file names.
 """
@@ -51,6 +56,7 @@ from ..ops import filters, strip_warp_kernel, warp
 from ..utils import pipeline
 from . import vr_geometry as vr
 from .engine import StylizerEngine
+from .evaluation import write_eval_file
 
 PROC_ORDER = (6, 1, 2, 5, 3, 4)
 
@@ -140,21 +146,37 @@ def _u8(x):
 
 
 class VRDriver:
-    def __init__(self, engine: StylizerEngine, opt: VROptions,
-                 batched_flow_provider=None):
-        """batched_flow_provider: a flow.provider.BatchedStreamingFlowProvider
-        computing all 6 face flows of a frame at once at frame start (each
-        face is its own temporal stream; only the border priors are
-        sequential). It replaces the flow and occlusion file patterns."""
+    def __init__(self, engine: StylizerEngine, opt: VROptions, eval_fn=None,
+                 flow_provider_factory=None, batched_flow_provider=None):
+        """eval_fn: called as eval_fn(driver, i) after each face
+        (video.evaluation.VREvaluator), returning a row of floats or None;
+        the rows go to opt.evaluation_file.
+
+        flow_provider_factory: a zero-argument callable building a
+        flow.provider.StreamingFlowProvider; one provider per face position
+        (each face is its own temporal stream) replaces the flow and
+        occlusion file patterns.
+
+        batched_flow_provider: a flow.provider.BatchedStreamingFlowProvider
+        computing all 6 face flows of a frame at once at frame start (only
+        the border priors are sequential). It takes precedence over
+        flow_provider_factory."""
         self.engine = engine
         self.opt = opt
         self.device = engine.device
+        self.eval_fn = eval_fn
+        self.eval_rows: List[List[float]] = []
         self.geo: Optional[_Geometry] = None
         self.segments: List[Optional[torch.Tensor]] = [None] * 6       # this frame
         self.prev_segments: List[Optional[torch.Tensor]] = [None] * 6  # previous, blended
+        self.last_content: Optional[torch.Tensor] = None               # the face last loaded
         self.batched_flow = batched_flow_provider
+        self.flow_providers = (
+            [flow_provider_factory() for _ in range(6)]
+            if flow_provider_factory is not None and batched_flow_provider is None
+            else None)
         # streaming: flow and certainty come from _streamed, not from files
-        self.streaming = batched_flow_provider is not None
+        self.streaming = self.flow_providers is not None or batched_flow_provider is not None
         self._streamed: List[Optional[tuple]] = [None] * 6
         self._border_certs: dict = {}
 
@@ -192,6 +214,7 @@ class VRDriver:
             return None
         img = self._upload(io.load_image_u8(path))
         self._geometry(img)
+        self.last_content = img
         return img
 
     def _border_cert(self, pos: int):
@@ -254,7 +277,8 @@ class VRDriver:
                 return border
             flow = streamed[0]
             if not self.engine.config.exact_warp:
-                band = self.batched_flow.last_band
+                band = (self.batched_flow.last_band if self.batched_flow is not None
+                        else self.flow_providers[pos].last_band)
         else:
             name = format_flow_name(opt.flow_pattern, file_idx - 1, file_idx)
             name = name % PROC_ORDER[pos] if "%" in name else name
@@ -394,8 +418,11 @@ class VRDriver:
             # input faces, so the resumed frame gets real flow and
             # certainty and warps the reloaded faces
             prev_faces = self._load_frame_faces((opt.continue_with - opt.start_frame) * 6 + 1)
-            if prev_faces is not None and self.streaming:
+            if prev_faces is not None and self.batched_flow is not None:
                 self.batched_flow(prev_faces)
+            elif prev_faces is not None and self.flow_providers is not None:
+                for pos in range(6):
+                    self.flow_providers[pos](prev_faces[pos])
         count = 0
         use_batched = self.batched_flow is not None and not opt.create_inconsistent
         prefetch = None
@@ -420,13 +447,15 @@ class VRDriver:
                         self._geometry(frame_faces[0])
                         out = self.batched_flow(frame_faces)
                         self._streamed = list(out) if out is not None else [None] * 6
-                    img = frame_faces[pos]
+                    img = self.last_content = frame_faces[pos]
                     t0 = time.monotonic()
                 else:
                     img = self.load_face(i)
                     if img is None:
                         break
                     t0 = time.monotonic()
+                    if self.flow_providers is not None and not opt.create_inconsistent:
+                        self._streamed[pos] = self.flow_providers[pos](img)
                 file_idx = (i - 1) // 6 + opt.start_frame
                 if self._is_single(i):
                     stylized = self.engine.stylize_first(img)
@@ -436,9 +465,15 @@ class VRDriver:
                 if progress:
                     print(f"frame {file_idx} face {PROC_ORDER[pos]}: "
                           f"{(time.monotonic() - t0) * 1000:.1f} ms")
+                if self.eval_fn is not None:
+                    row = self.eval_fn(self, i)
+                    if row is not None:
+                        self.eval_rows.append(list(row))
                 if pos == 5:
                     self._save_frame_outputs(file_idx, writer)
                 count += 1
         finally:
             writer.close()
+        if self.eval_rows and opt.evaluation_file:
+            write_eval_file(opt.evaluation_file, self.eval_rows)
         return count

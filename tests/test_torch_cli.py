@@ -114,8 +114,11 @@ def test_file_pattern_flow_mode_matches_jax_cli(fixture, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """Every flag of the JAX CLI is carried since the evaluation slice
+    (--evaluate: tests/test_torch_evaluation.py); --evaluate without a loss
+    network raises before any frame is stylized, naming the flag."""
     for extra in (["--evaluate"],):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="--loss_network"):
             _port_cli(os.path.join(tmp_path, "f_%05d.ppm"), str(tmp_path), *extra)
 
 

@@ -16,7 +16,8 @@ import torch
 
 from fast_artistic_videos_tpu_torch.core import device as device_mod
 from fast_artistic_videos_tpu_torch.flow import estimator
-from fast_artistic_videos_tpu_torch.models import arch_dsl, checkpoint, stylizer
+from fast_artistic_videos_tpu_torch.models import arch_dsl, checkpoint, stylizer, vgg
+from fast_artistic_videos_tpu_torch.ops import gram
 from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel, front_kernel, rblock_kernel
 from fast_artistic_videos_tpu_torch.ops import warp_kernel
 from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
@@ -685,3 +686,46 @@ def test_float32_flow_pyramid_ignores_the_tf32_flag(tf32_flag_on, monkeypatch):
     monkeypatch.setattr(device_mod, "float32_convs", contextlib.nullcontext)
     tf32 = estimator.extract_pyramid(params, _t(img, cuda))
     assert max(_rel(g, w) for g, w in zip(tf32, want)) > F32_VS_F64
+
+
+@pytest.fixture
+def both_tf32_flags_on(cuda):
+    """PyTorch's TF32 switches for cuDNN convs and cuBLAS matmuls both on,
+    restored after."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield cuda
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_float32_gram_ignores_the_tf32_flags(both_tf32_flags_on, monkeypatch):
+    """The evaluator's Gram product (ops.gram) in float32 on the card with
+    both TF32 flags on: within 1e-5 (relative L2) of a float64 CPU product,
+    and the flags are left as they were. Without the scope it misses."""
+    cuda = both_tf32_flags_on
+    x = np.random.default_rng(11).standard_normal((2, 48, 40, 256))
+    want = gram.gram_matrix(torch.from_numpy(x))
+    got = gram.gram_matrix(_t(x, cuda))
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+    assert got.dtype == torch.float32 and _rel(got, want) <= F32_VS_F64
+    monkeypatch.setattr(device_mod, "float32_convs", contextlib.nullcontext)
+    assert _rel(gram.gram_matrix(_t(x, cuda)), want) > F32_VS_F64
+
+
+def test_float32_vgg_ignores_the_tf32_flags(both_tf32_flags_on, monkeypatch):
+    """The VGG-16 loss network (models.vgg, full width, every tap up to
+    relu4_3) in float32 on the card with both TF32 flags on, against a
+    float64 CPU run, as above."""
+    cuda = both_tf32_flags_on
+    params = vgg.init_params(torch.Generator().manual_seed(3), device=cuda)
+    x = np.random.default_rng(12).random((1, 64, 80, 3)) * 255 - 120
+    taps = (4, 9, 16, 23)
+    got = vgg.extract_features(params, _t(x, cuda), taps)
+    want = vgg.extract_features(_tree(params, lambda t: t.cpu().double()),
+                                torch.from_numpy(x), taps)
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert all(_rel(got[t], want[t]) <= F32_VS_F64 for t in taps)
+    monkeypatch.setattr(device_mod, "float32_convs", contextlib.nullcontext)
+    tf32 = vgg.extract_features(params, _t(x, cuda), taps)
+    assert max(_rel(tf32[t], want[t]) for t in taps) > F32_VS_F64

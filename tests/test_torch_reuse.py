@@ -183,9 +183,12 @@ def test_stylize_video_file_frames_dir(batch_fixture, tmp_path):  # noqa: F811
 def test_stylize_video_file_unported_and_missing_ffmpeg(tmp_path, monkeypatch):
     from fast_artistic_videos_tpu_torch.cli import stylize_video_file
 
-    with pytest.raises(NotImplementedError, match="slice D"):
+    # --flow_background is carried since the flow-file slice
+    # (tests/test_torch_flow_files.py); like the streaming path it needs
+    # --flow_model
+    with pytest.raises(SystemExit):
         stylize_video_file.main(["--frames_dir", str(tmp_path), "--model_vid", "demo",
-                                 "--flow_model", "bundled", "--flow_background"])
+                                 "--flow_background"])
     monkeypatch.setattr(stylize_video_file.shutil, "which", lambda name: None)
     with pytest.raises(SystemExit, match="ffmpeg/avconv not found"):
         stylize_video_file.main([str(tmp_path / "v.mp4"), "--model_vid", "demo",

@@ -266,7 +266,10 @@ def test_port_vr_cli_resume(fixture, tmp_path):
 
 
 def test_evaluate_raises_and_names_roadmap(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """--evaluate is carried since the evaluation slice (tests/
+    test_torch_vr_eval.py); without a loss network it raises before any
+    face is stylized, naming the flag it needs."""
+    with pytest.raises(ValueError, match="--loss_network"):
         tcli.main(["--input_pattern", os.path.join(tmp_path, "f%04d_%d.ppm"),
                    "--model_vid", "demo", "--create_inconsistent", "--evaluate",
                    "--device", "cpu"])

@@ -10,7 +10,13 @@ synthetic pans and the JAX package's CLI outputs for them.
   * tests/fixtures/torch_parity_batch.npz: the 2D CLI's other modes on a
     4-frame 84x112 pan (at least 41 px per side after --scale_factor 0.5):
     --create_inconsistent --inconsistent_batch 2, --feature_reuse 3,
-    --scale_factor 0.5 and --phase_resident (BATCH_CASES).
+    --scale_factor 0.5 and --phase_resident (BATCH_CASES);
+  * tests/fixtures/torch_parity_eval.npz: the JAX evaluators' rows
+    (VideoEvaluator, VREvaluator) on the content frames and stylized
+    outputs stored in the demo and VR fixtures, with ground-truth pan flow
+    and certainty for the temporal term, a VGG-16 made from EVAL_VGG_SEED
+    (vgg_npz: the seed is stored, not the weights) and the bundled candy
+    style image.
 
 The JAX CLIs run on the CPU with the bundled demo model and flow estimator
 (--model_vid demo --flow_model bundled --flow_scale 0.5, float32).
@@ -30,6 +36,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "fixtures", "torch_parity_demo.npz")
 OUT_VR = os.path.join(ROOT, "tests", "fixtures", "torch_parity_vr.npz")
 OUT_BATCH = os.path.join(ROOT, "tests", "fixtures", "torch_parity_batch.npz")
+OUT_EVAL = os.path.join(ROOT, "tests", "fixtures", "torch_parity_eval.npz")
 
 SEED = 20261016
 FRAMES, H, W = 5, 96, 128
@@ -46,6 +53,8 @@ BATCH_CASES = {
     "scale": (["--scale_factor", "0.5"], 3),
     "phase": (["--phase_resident"], 3),
 }
+EVAL_VGG_SEED = 20261019
+EVAL_STYLE_SIZE = 64
 VR_ARGS = ["--model_vid", "demo", "--flow_model", "bundled", "--flow_scale", "0.5",
            "--overlap_pixel_w", str(VR_OVERLAP), "--overlap_pixel_h", str(VR_OVERLAP)]
 
@@ -126,6 +135,123 @@ def run_jax_vr_cli(faces: np.ndarray, workdir: str) -> np.ndarray:
     return read_vr_outputs(prefix, len(faces))
 
 
+def vgg_npz(seed: int, path: str) -> str:
+    """Write a full-width VGG-16 .npz (the t7 importer's layout, HWIO) made
+    from a numpy seed: per conv in order, weights then bias uniform in
+    (-s, s) with s = 1/sqrt(9 Cin), float32."""
+    from fast_artistic_videos_tpu.models.vgg import VGG16_LAYOUT
+
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for idx, cin, cout in ((i, a, b) for i, op, a, b in VGG16_LAYOUT if op == "conv"):
+        s = 1.0 / np.sqrt(9 * cin)
+        flat[f"conv{idx:02d}/w"] = rng.uniform(-s, s, (3, 3, cin, cout)).astype(np.float32)
+        flat[f"conv{idx:02d}/b"] = rng.uniform(-s, s, cout).astype(np.float32)
+    np.savez(path, **flat)
+    return path
+
+
+def write_pan_flow(workdir: str, n: int, h: int, w: int, step, faces=()) -> tuple:
+    """Ground truth of a pan_frames pan: the backward flow of frame t
+    (t = 2..n) is exactly step = (dx, dy), certain where the sample lands
+    inside the frame and 0 in the band the pan reveals. Written as
+    backward_<t>_<t-1>.flo and reliable_<t>_<t-1>.pgm (one pair per face
+    number with a _<face> suffix when `faces` is given); returns the flow
+    and certainty patterns."""
+    from fast_artistic_videos_tpu.core import io
+
+    sx, sy = step
+    flow = np.empty((h, w, 2), np.float32)
+    flow[..., 0], flow[..., 1] = sx, sy
+    ys, xs = np.mgrid[0:h, 0:w]
+    cert = (((xs + sx) <= w - 1) & ((ys + sy) <= h - 1)).astype(np.uint8) * 255
+    suffixes = [f"_{k}" for k in faces] or [""]
+    for t in range(2, n + 1):
+        for sfx in suffixes:
+            io.write_flo(os.path.join(workdir, f"backward_{t}_{t - 1}{sfx}.flo"), flow)
+            io.write_pgm(os.path.join(workdir, f"reliable_{t}_{t - 1}{sfx}.pgm"), cert)
+    tail = "_%d" if faces else ""
+    return (os.path.join(workdir, "backward_[%d]_{%d}" + tail + ".flo"),
+            os.path.join(workdir, "reliable_[%d]_{%d}" + tail + ".pgm"))
+
+
+def eval_options(vgg_path: str, style_path: str, flow_pattern: str, cert_pattern: str,
+                 **extra) -> dict:
+    """The evaluation flags of the fixture's runs (StylizeOptions /
+    VROptions fields)."""
+    return dict(evaluate=True, loss_network=vgg_path, style_image=style_path,
+                style_image_size=EVAL_STYLE_SIZE, flow_pattern_eval=flow_pattern,
+                occlusions_pattern_eval=cert_pattern, **extra)
+
+
+def eval_cases(demo: dict, vr_fx: dict):
+    """The evaluator calls the fixture scores: 2D ((i, content, stylized,
+    prev_stylized), float32 [0, 1] numpy), and VR ((i, pos, faces of the
+    frame by processing position, the previous frame's, the content face))."""
+    from fast_artistic_videos_tpu.video.driver_vr import PROC_ORDER
+
+    frames = demo["frames"].astype(np.float32) / 255.0
+    outs = demo["outputs"].astype(np.float32) / 255.0
+    cases_2d = [(t, frames[t - 1], outs[t - 1], outs[t - 2] if t > 1 else None)
+                for t in range(1, len(frames) + 1)]
+    faces = vr_fx["faces"].astype(np.float32) / 255.0
+    vouts = vr_fx["outputs"].astype(np.float32) / 255.0
+    cases_vr = [(f * 6 + pos + 1, pos, vouts[f], vouts[f - 1] if f else vouts[f],
+                 faces[f][PROC_ORDER[pos] - 1])
+                for f in range(len(faces)) for pos in range(6)]
+    return cases_2d, cases_vr
+
+
+def jax_eval_rows(demo: dict, vr_fx: dict, workdir: str, vgg_path: str):
+    """The JAX evaluators' rows on the eval cases: (rows_2d (n, 3), rows_vr
+    (6 n, 7))."""
+    import types
+
+    from fast_artistic_videos_tpu.core.config import StylizeOptions
+    from fast_artistic_videos_tpu.models import registry
+    from fast_artistic_videos_tpu.video import evaluation
+    from fast_artistic_videos_tpu.video.driver_vr import VROptions, _Geometry
+
+    style = registry.style_fixture("candy")
+    n, h, w = demo["frames"].shape[:3]
+    pats = write_pan_flow(workdir, n, h, w, tuple(int(v) for v in demo["step"]))
+    ev = evaluation.VideoEvaluator(StylizeOptions(**eval_options(vgg_path, style, *pats)))
+    cases_2d, cases_vr = eval_cases(demo, vr_fx)
+    rows_2d = [ev(*case) for case in cases_2d]
+    nv, _, face = vr_fx["faces"].shape[:3]
+    overlap = int(vr_fx["overlap"])
+    vdir = os.path.join(workdir, "vr")
+    os.makedirs(vdir, exist_ok=True)
+    vpats = write_pan_flow(vdir, nv, face, face, tuple(int(v) for v in vr_fx["step"]),
+                           faces=range(1, 7))
+    vopt = VROptions(overlap_pixel_w=overlap, overlap_pixel_h=overlap,
+                     **eval_options(vgg_path, style, *vpats))
+    vev = evaluation.VREvaluator(vopt)
+    geo = _Geometry(face, face, vopt)
+    rows_vr = []
+    for i, _, segs, prev, content in cases_vr:
+        driver = types.SimpleNamespace(geo=geo, segments=list(segs),
+                                       prev_segments=list(prev), last_content=content)
+        rows_vr.append(vev(driver, i))
+    return np.asarray(rows_2d, np.float64), np.asarray(rows_vr, np.float64)
+
+
+def load(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def write_eval():
+    demo, vr_fx = load(OUT), load(OUT_VR)
+    with tempfile.TemporaryDirectory() as d:
+        rows_2d, rows_vr = jax_eval_rows(demo, vr_fx, d, vgg_npz(EVAL_VGG_SEED,
+                                                                 os.path.join(d, "vgg16.npz")))
+    np.savez_compressed(OUT_EVAL, vgg_seed=np.int64(EVAL_VGG_SEED),
+                        style_image_size=np.int64(EVAL_STYLE_SIZE),
+                        rows_2d=rows_2d, rows_vr=rows_vr)
+    print(f"wrote {OUT_EVAL} ({os.path.getsize(OUT_EVAL)} bytes)")
+
+
 def write_demo():
     frames = pan_frames(SEED, FRAMES, H, W)
     with tempfile.TemporaryDirectory() as d:
@@ -163,6 +289,7 @@ def main():
     write_demo()
     write_vr()
     write_batch()
+    write_eval()
     return 0
 
 
