@@ -28,8 +28,8 @@ Phases (any failure exits non-zero, before the result line is printed):
      cached and packed afresh, with the host microseconds per call of
      both. K1 takes the C entry ops/warp_kernel.py's warp_route names
      (fav_warp_banded for C <= 4, fav_warp_banded_vec otherwise), each
-     case beside grid_sample; after phase 13, K1 also runs at every (shape,
-     dtype, band) that phases 4, 6, 9, 11 and 13 launched and this list
+     case beside grid_sample; after phase 16, K1 also runs at every (shape,
+     dtype, band) that phases 4, 6, 9, 11, 13 and 16 launched and this list
      lacks;
   4. the 2D main path: the streaming stylizer (bundled demo model, bundled
      flow estimator, flow at half resolution) on 12 seeded 1080p pan
@@ -92,11 +92,45 @@ Phases (any failure exits non-zero, before the result line is printed):
      (finite, non-degenerate equirect output); the VR --evaluate run at
      phase 6's face size on 2 frames (launches as phase 6's, 7 finite series
      of 12, the scorer's ms per face). K1's launches of phases 11 and 13 are
-     recorded by shape as those of phases 4, 6 and 9 are.
+     recorded by shape as those of phases 4, 6 and 9 are;
+ 14. the style trainer at full width (canonical architecture, 256x256,
+     batch 4, phase 11's VGG-16, the bundled candy style at 384 px,
+     shift:1,zoom_out:1,vr:1, one step then two from iteration 5, 10
+     iterations, validation and a checkpoint every 5) on seeded images,
+     float32 then bfloat16: finite losses, every parameter leaf moved, each
+     forward-only pass launches K4 exactly 10 times on the entry conv_route
+     names for the dtype and the gradient pass and backward launch no
+     kernel, K4's total equal to 10 per forward-only pass of the batches
+     the wheel drew; a fresh trainer restored at iteration 5 continues to
+     10 beside the uninterrupted run (RESUME_LIMITS: losses rtol 5e-5
+     float32, 5e-4 bfloat16, each parameter leaf within a share of its
+     update since the checkpoint, the cancelled biases within Adam's 2 lr
+     a step: cuDNN's backward algorithms need not be deterministic), and
+     two planted faults (Adam afresh, the data generator from its seed)
+     must miss those limits; the iteration time (CUDA events,
+     median of the last 5) split into forward-only passes, gradient pass
+     and optimizer, images per second, peak memory and the bound from the
+     operations FlopCounterMode counts. Where h5py is installed, 2
+     iterations from an HDF5 written by the port's make_image_dataset;
+ 15. the trainer in float32 on the card against the JAX trainer's fixture
+     (tests/fixtures/torch_parity_train.npz: canonical architecture, 64x64,
+     batch 2, 3 iterations, seeded parameters): losses rtol 1e-4, gradient
+     norms rtol 2e-3, final parameter sums 2e-5 (check_train_parity);
+ 16. train_flow_synthetic from the bundled flow weights (256-px crops,
+     batch 4, 20 iterations) with no kernel launch, its step time; then
+     evaluate_heldout on the bundled weights through K1 against the JAX
+     function's fixture (tests/fixtures/torch_parity_flow_eval.npz), EPE
+     rtol 1e-4, pass rates within 1e-3; K1's launches recorded by shape.
+     K4's launches in phases 14 and 15 are recorded by shape too, and after
+     phase 16 phase 3 holds K4 against its plain version at each of them
+     on the inputs of its first launch (relative L2 1e-4 float32, 1e-2
+     bfloat16).
 
 The last lines of standard output are the card's name and power limit, a
 JSON line with one row per kernel (name, route, source, the TPU kernel it
-replaces, its float32 C entry, launches in its main path's float32 run, max
+replaces, its float32 C entry, launches in its main path's float32 run (K4
+also its launches in phase 14's runs, "training_launches", and its cases at
+the training shapes, "training_cases"), max
 abs error, kernel, device, plain, bound and library-call milliseconds, and
 under "bfloat16" the same figures of its bfloat16 form: route, source, C
 entry, launches in the bfloat16 run and how many of them took the tensor
@@ -246,15 +280,17 @@ def _check_routes(kernels, launches, dtype, where):
             for name, k in kernels.items()}
 
 
-class WarpShapes:
-    """K1's launches on the main paths (phases 4, 6, 9, 11 and 13) by (shape,
-    dtype, band, C entry), and the inputs of the first launch of each, kept
-    on the card: phase 3 adds a case for each shape its own list lacks, and times
-    K1 on the flows the main paths produced (their taps lie close together)
-    beside its seeded random flows (whose taps scatter over the whole band).
-    `recording()` wraps warp_kernel.warp_banded, here in the script and not
-    in the package, for one run (the flow thread launches too, hence the
-    lock); `check` holds that run's record against K1's own counters."""
+class LaunchShapes:
+    """One kernel's launches on the main paths by a key of their shape, and
+    the arguments of the first launch of each key, kept on the card for
+    phase 3's continuation. `recording()` wraps the kernel's public
+    entries (`ENTRY_NAMES` of `MODULE`), here in the script and not in the
+    package, for one run (the flow thread launches too, hence the lock);
+    `check` holds that run's record against the kernel's own counters. A
+    subclass names the entries and the key, whose last item is the C entry
+    the launch takes."""
+
+    MODULE, ENTRY_NAMES = "", ()
 
     def __init__(self):
         import threading
@@ -262,28 +298,36 @@ class WarpShapes:
         self.counts, self.inputs, self.run = {}, {}, {}
         self._lock = threading.Lock()
 
+    def key(self, entry_name, *args):
+        raise NotImplementedError
+
     @contextlib.contextmanager
     def recording(self):
-        from fast_artistic_videos_tpu_torch.ops import warp_kernel
+        import importlib
 
-        fn = warp_kernel.warp_banded
+        mod = importlib.import_module(self.MODULE)
+        fns = {name: getattr(mod, name) for name in self.ENTRY_NAMES}
         self.run = {}
 
-        def wrapped(img, flow, band):
-            if img.device.type == "cuda":
-                entry = warp_kernel.warp_route(img.shape[-1], img.dtype,
-                                               img.data_ptr() % 16 == 0)[0]
-                key = (tuple(img.shape), str(img.dtype).split(".")[-1], int(band), entry)
-                with self._lock:
-                    self.run[key] = self.run.get(key, 0) + 1
-                    if key not in self.inputs:
-                        self.inputs[key] = (img.clone(), flow.clone())
-            return fn(img, flow, band)
-        warp_kernel.warp_banded = wrapped
+        def wrap(name, fn):
+            def wrapped(*args):
+                if args[0].device.type == "cuda":
+                    key = self.key(name, *args)
+                    with self._lock:
+                        self.run[key] = self.run.get(key, 0) + 1
+                        if key not in self.inputs:
+                            self.inputs[key] = tuple(
+                                a.detach().clone() if hasattr(a, "detach") else a
+                                for a in args)
+                return fn(*args)
+            return wrapped
+        for name, fn in fns.items():
+            setattr(mod, name, wrap(name, fn))
         try:
             yield self
         finally:
-            warp_kernel.warp_banded = fn
+            for name, fn in fns.items():
+                setattr(mod, name, fn)
             for key, n in self.run.items():
                 self.counts[key] = self.counts.get(key, 0) + n
 
@@ -291,13 +335,47 @@ class WarpShapes:
         """Log the last run's record; raise unless it sums to the kernel's
         launches and its C entries to the kernel's routes."""
         by_entry = {}
-        for (_, _, _, entry), n in self.run.items():
-            by_entry[entry] = by_entry.get(entry, 0) + n
-        for (shape, dtype, band, entry), n in sorted(self.run.items()):
-            log(f"K1 shape {where}: {shape} {dtype} band {band} via {entry}: {n} launches")
+        for key, n in self.run.items():
+            by_entry[key[-1]] = by_entry.get(key[-1], 0) + n
+        for key, n in sorted(self.run.items()):
+            log(f"{kernel.name} shape {where}: {key}: {n} launches")
         if sum(self.run.values()) != kernel.launches or by_entry != kernel.routes:
-            raise AssertionError(f"{where}: K1 record {by_entry} != launches {kernel.launches} "
-                                 f"by entry {kernel.routes}")
+            raise AssertionError(f"{where}: {kernel.name} record {by_entry} != launches "
+                                 f"{kernel.launches} by entry {kernel.routes}")
+
+
+class WarpShapes(LaunchShapes):
+    """K1's launches on the main paths (phases 4, 6, 9, 11, 13 and 16) by
+    (shape, dtype, band, C entry): phase 3 adds a case for each shape its
+    own list lacks, and times K1 on the flows the main paths produced
+    (their taps lie close together) beside its seeded random flows (whose
+    taps scatter over the whole band)."""
+
+    MODULE = "fast_artistic_videos_tpu_torch.ops.warp_kernel"
+    ENTRY_NAMES = ("warp_banded",)
+
+    def key(self, entry_name, img, flow, band):
+        from fast_artistic_videos_tpu_torch.ops import warp_kernel
+
+        entry = warp_kernel.warp_route(img.shape[-1], img.dtype, img.data_ptr() % 16 == 0)[0]
+        return tuple(img.shape), str(img.dtype).split(".")[-1], int(band), entry
+
+
+class ConvShapes(LaunchShapes):
+    """K4's launches on the training paths (phases 14 and 15) by (input
+    shape, dtype, Cout, pad, ReLU, C entry): phase 3 holds K4 against its
+    plain version at each of them, on the inputs of its first launch."""
+
+    MODULE = "fast_artistic_videos_tpu_torch.ops.conv_kernel"
+    ENTRY_NAMES = ("conv3x3", "conv3x3_valid")
+
+    def key(self, entry_name, x, w, b, relu=False):
+        from fast_artistic_videos_tpu_torch.ops import _conv_in
+
+        pad = 1 if entry_name == "conv3x3" else 0
+        entry = _conv_in.conv_route(x.dtype, 3, 3, 1, pad, x.shape[-1], w.shape[0])
+        return (tuple(x.shape), str(x.dtype).split(".")[-1], int(w.shape[0]), pad, bool(relu),
+                entry)
 
 
 def _host_us(torch, fn, n):
@@ -457,7 +535,7 @@ def warp_cases(torch, g, out, shape, band, dtype, tol, inputs=None):
 
 def check_recorded_warps(torch, res, k1):
     """Phase 3, continued after the main paths: K1 at each (shape, dtype,
-    band) that phases 4, 6, 9, 11 and 13 launched and phase 3's list lacks, on
+    band) that phases 4, 6, 9, 11, 13 and 16 launched and phase 3's list lacks, on
     seeded random flows, then at every one of them on the inputs of its
     first launch there."""
     g = torch.Generator(device="cpu").manual_seed(4321)
@@ -473,7 +551,7 @@ def check_recorded_warps(torch, res, k1):
     for key in sorted(k1.counts):
         shape, dname, band, _ = key
         warp_cases(torch, g, res["warp_banded"], shape, band, dtypes[dname],
-                   1e-5 if dname == "float32" else 2 ** -7, inputs=k1.inputs[key])
+                   1e-5 if dname == "float32" else 2 ** -7, inputs=k1.inputs[key][:2])
 
 
 def check_bf16_packs(torch, g):
@@ -627,11 +705,7 @@ def check_kernels(torch):
 def check_block_conv(torch, g):
     """K4 against its plain version: the batched 1080p residual-block conv
     (4, 290, 500, 128) -> 128 VALID in float32 and bfloat16, and a SAME
-    (pad 1) conv widening to 256 with the ReLU epilogue. Relative L2
-    <= 1e-4 float32, <= 1e-2 bfloat16 (the conv_case tolerances); the
-    library yardstick is F.conv2d (cuDNN) on the same NHWC data."""
-    from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel
-
+    (pad 1) conv widening to 256 with the ReLU epilogue (block_conv_case)."""
     out = []
     for n, h, w, cin, cout, same, relu, dtype in (
             (4, 290, 500, 128, 128, False, False, torch.float32),
@@ -641,38 +715,65 @@ def check_block_conv(torch, g):
         x = torch.randn(n, h, w, cin, generator=g).to("cuda", dtype)
         wt = (torch.randn(cout, cin, 3, 3, generator=g) / (9 * cin) ** 0.5).cuda()
         b = (torch.randn(cout, generator=g) * 0.1).cuda()
-        pad = 1 if same else 0
-        fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
-        entry = _conv_in.conv_route(dtype, 3, 3, 1, pad, cin, cout)
-        before = conv_kernel.KERNEL.routes.get(entry, 0)
-        got = fn(x, wt, b, relu)
-        want = conv_kernel.conv3x3_plain(x, wt, b, relu, pad)
-        torch.cuda.synchronize()
-        if conv_kernel.KERNEL.routes.get(entry, 0) != before + 1:
-            raise AssertionError(f"K4 {dtype}: the launch did not take {entry}")
-        y, yp = got.float(), want.float()
-        rel = ((y - yp).norm() / yp.norm()).item()
-        err = (y - yp).abs().max().item()
-        tol = 1e-4 if dtype == torch.float32 else 1e-2
-        ms = _time_ms(torch, lambda: fn(x, wt, b, relu))
-        dev_ms = _profile_ms(torch, lambda: fn(x, wt, b, relu), SYMBOLS[entry])
-        plain_ms = _time_ms(torch, lambda: conv_kernel.conv3x3_plain(x, wt, b, relu, pad))
-        xc, wc, bc = x.permute(0, 3, 1, 2), wt.to(dtype), b.to(dtype)
-        lib_ms = _time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, bc, 1, pad))
-        esz = x.element_size()
-        nbytes = (x.numel() + y.numel() + wt.numel()) * esz + b.numel() * 4
-        flops = 2 * y.shape[0] * y.shape[1] * y.shape[2] * cout * cin * 9
-        b_ms, b_by = bound(nbytes, flops, _dname(torch, dtype))
-        log(f"K4 block conv ({n},{h},{w},{cin})->{cout} {'SAME' if same else 'VALID'} "
-            f"relu={relu} {dtype} via {entry}: rel_l2 {rel:.3g} max_abs {err:.3g} "
-            f"(tol {tol:g}) kernel {ms:.4f} ms (device {dev_ms:.4f} ms, profiler) plain "
-            f"{plain_ms:.4f} ms conv2d {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
-            f"{flops / 1e9:.1f} GFLOP)")
-        if not rel <= tol:
-            raise AssertionError(f"K4 ({n},{h},{w},{cin})->{cout} {dtype}: rel {rel}")
-        out.append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms, entry=entry))
+        block_conv_case(torch, out, x, wt, b, relu, same, "block conv")
     return out
+
+
+def block_conv_case(torch, out, x, wt, b, relu, same, where):
+    """One K4 case on (x, wt, b): the kernel against its plain version,
+    relative L2 <= 1e-4 float32, <= 1e-2 bfloat16 (the conv_case
+    tolerances), with CUDA-event, device (profiler), plain, bound and
+    F.conv2d (cuDNN, on the same NHWC data) times; appended to out."""
+    from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel
+
+    n, h, w, cin = x.shape
+    cout, dtype, pad = wt.shape[0], x.dtype, 1 if same else 0
+    fn = conv_kernel.conv3x3 if same else conv_kernel.conv3x3_valid
+    entry = _conv_in.conv_route(dtype, 3, 3, 1, pad, cin, cout)
+    before = conv_kernel.KERNEL.routes.get(entry, 0)
+    got = fn(x, wt, b, relu)
+    want = conv_kernel.conv3x3_plain(x, wt, b, relu, pad)
+    torch.cuda.synchronize()
+    if conv_kernel.KERNEL.routes.get(entry, 0) != before + 1:
+        raise AssertionError(f"K4 {dtype}: the launch did not take {entry}")
+    y, yp = got.float(), want.float()
+    rel = ((y - yp).norm() / yp.norm()).item()
+    err = (y - yp).abs().max().item()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    ms = _time_ms(torch, lambda: fn(x, wt, b, relu))
+    try:
+        dev_ms, dev_by = _profile_ms(torch, lambda: fn(x, wt, b, relu), SYMBOLS[entry],
+                                     tries=5), "profiler"
+    except RuntimeError as e:
+        log(f"K4 {where} {tuple(x.shape)} {dtype}: {e}; device time from a CUDA graph instead")
+        dev_ms, dev_by = _graph_ms(torch, lambda: fn(x, wt, b, relu)), "CUDA graph"
+    plain_ms = _time_ms(torch, lambda: conv_kernel.conv3x3_plain(x, wt, b, relu, pad))
+    xc, wc, bc = x.permute(0, 3, 1, 2), wt.to(dtype), b.to(dtype)
+    lib_ms = _time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, bc, 1, pad))
+    esz = x.element_size()
+    nbytes = (x.numel() + y.numel() + wt.numel()) * esz + b.numel() * 4
+    flops = 2 * y.shape[0] * y.shape[1] * y.shape[2] * cout * cin * 9
+    b_ms, b_by = bound(nbytes, flops, _dname(torch, dtype))
+    shape = f"({n},{h},{w},{cin})->{cout} {'SAME' if same else 'VALID'}"
+    log(f"K4 {where} {shape} relu={relu} {dtype} via {entry}: rel_l2 {rel:.3g} max_abs "
+        f"{err:.3g} (tol {tol:g}) kernel {ms:.4f} ms (device {dev_ms:.4f} ms, {dev_by}) plain "
+        f"{plain_ms:.4f} ms conv2d {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+        f"{flops / 1e9:.2f} GFLOP)")
+    if not rel <= tol:
+        raise AssertionError(f"K4 {where} {shape} {dtype}: rel {rel}")
+    out.append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=dtype, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms, entry=entry,
+                    shape=shape, relu=relu, rel_l2=rel, where=where, device_by=dev_by))
+
+
+def check_recorded_convs(torch, res, k4):
+    """Phase 3, continued after the training paths: K4 at every (input
+    shape, dtype, Cout, pad, ReLU) that phases 14 and 15 launched, on the
+    inputs of its first launch there (block_conv_case)."""
+    for key in sorted(k4.counts):
+        x, w, b, *relu = k4.inputs[key]
+        block_conv_case(torch, res["conv3x3"], x, w, b, bool(relu and relu[0]), key[3] == 1,
+                        f"training ({k4.counts[key]} launches)")
 
 
 def _footprint(m, box, f):
@@ -1765,6 +1866,709 @@ def run_flow_file_paths(torch, workdir, k1, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: training
+# ---------------------------------------------------------------------------
+
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_ITERS, TRAIN_IMAGES = 256, 4, 10, 12
+TRAIN_IMAGE_SEED = 20261022
+# the trainer fixture's seeds, sizes and options: tools/make_torch_parity_fixture.py's
+# write_train runs the JAX trainer with them, phase 15 the port's. The
+# learning rate is 1e-5: Adam's first steps move every element by about
+# the learning rate whatever its gradient's size, and at the default 1e-3
+# the run's own float32 and float64 losses part by 1e-3 by iteration 3
+# (at 1e-5: 4e-6), which no float32 comparison could resolve
+PARITY_PARAM_SEED, PARITY_IMAGE_SEED = 20261020, 20261021
+PARITY_HW, PARITY_BATCH, PARITY_ITERS, PARITY_IMAGES = 64, 2, 3, 6
+PARITY_OPTS = dict(data_mix="shift:1,zoom_out:1", train_img_size=f"{PARITY_HW}:{PARITY_HW}",
+                   batch_size=PARITY_BATCH, style_image_size=PARITY_HW, learning_rate="1e-5",
+                   num_iterations=PARITY_ITERS, print_every=10 ** 9, history_every=1,
+                   checkpoint_every=10 ** 9, images_every=0, num_val_batches=1)
+PARITY_LR = 1e-5
+FLOW_TRAIN_SIZE, FLOW_TRAIN_BATCH, FLOW_TRAIN_ITERS, FLOW_TRAIN_POOL = 256, 4, 20, 16
+
+
+class ArraySource:
+    """An in-memory image source with the duck type of the trainer's
+    H5ImageSource (next_images, reset, cursor): {split: (N, H, W, 3)
+    uint8}, batches of batch_size in order, wrapping before a short one
+    (also the JAX trainer's source in tools/make_torch_parity_fixture.py)."""
+
+    def __init__(self, images, batch_size):
+        self.images, self.batch_size = images, batch_size
+        self.cursor = {k: 0 for k in images}
+
+    def reset(self, split):
+        self.cursor[split] = 0
+
+    def next_images(self, split):
+        import numpy as np
+
+        n, start = len(self.images[split]), self.cursor[split]
+        if start + self.batch_size > n:
+            start = 0
+        end = start + self.batch_size
+        self.cursor[split] = 0 if end >= n else end
+        return self.images[split][start:end].astype(np.float32) / 255.0
+
+
+def seeded_images(seed, n, hw):
+    """{"train", "val"}: n seeded uint8 (hw, hw, 3) images each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {split: rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+            for split in ("train", "val")}
+
+
+def seeded_params(seed, shapes):
+    """A stylizer tree in the JAX package's layout from a numpy seed (both
+    sides of the trainer fixture start from it), leaves in sorted flat-key
+    order: kernels (HWIO) uniform in (-s, s), s = 1/sqrt(kh kw Cin), biases
+    uniform in (-0.05, 0.05), norm scales uniform in (0.5, 1.5)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tree = {}
+    for key in sorted(shapes):
+        shape = tuple(shapes[key])
+        leaf = key.rsplit("/", 1)[1]
+        if leaf == "w":
+            s = 1.0 / np.sqrt(np.prod(shape[:-1]))
+            a = rng.uniform(-s, s, shape)
+        elif leaf == "scale":
+            a = rng.uniform(0.5, 1.5, shape)
+        else:
+            a = rng.uniform(-0.05, 0.05, shape)
+        node = tree
+        for part in key.split("/")[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = a.astype(np.float32)
+    return tree
+
+
+def flat_tree(tree, prefix=""):
+    """{"layer00/w": array, ...} of a nested parameter tree."""
+    import numpy as np
+
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(flat_tree(v, key) if isinstance(v, dict) else {key: np.asarray(v)})
+    return out
+
+
+def train_parity_run(torch, device, vgg_path):
+    """The port's side of phase 15 (also run on the CPU by
+    tests/test_torch_train.py): the run of write_train on `device`.
+    Returns (losses, {key: first-iteration gradient L2 norm}, {key: final
+    parameters}, {key: initial parameters}), keys and layout the JAX
+    package's."""
+    import copy
+
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.core import device as device_mod
+    from fast_artistic_videos_tpu_torch.core.config import TrainOptions, schedule_value
+    from fast_artistic_videos_tpu_torch.models import checkpoint, registry
+    from fast_artistic_videos_tpu_torch.train.trainer import Trainer, leaves
+    from fast_artistic_videos_tpu_torch.video.evaluation import load_vgg_params
+
+    opt = TrainOptions(style_image=registry.style_fixture("candy"), **PARITY_OPTS)
+    tr = Trainer(opt, vgg_params=load_vgg_params(vgg_path, device), device=device)
+    tr.image_source = ArraySource(seeded_images(PARITY_IMAGE_SEED, PARITY_IMAGES, PARITY_HW),
+                                  PARITY_BATCH)
+    keys = list(flat_tree(checkpoint.params_to_numpy(tr.params)))   # leaves() order
+    init = seeded_params(PARITY_PARAM_SEED, {k: v.shape for k, v in flat_tree(
+        checkpoint.params_to_numpy(tr.params)).items()})
+    tr.set_params(init)
+    # the first iteration's gradient, from the batch the run draws first
+    state = copy.deepcopy(tr.data_rng.bit_generator.state)
+    cursor = dict(tr.image_source.cursor)
+    source = tr._next_source()
+    imgs, flows, certs, steps = tr._get_batch(
+        "train", source, int(schedule_value(tr.frame_steps_sched, 1)))
+    with device_mod.float32_convs():
+        loss, _ = tr._loss_fn(tr.params, imgs, flows, certs, steps, tr._first_mode(source))
+        grads = torch.autograd.grad(loss, leaves(tr.params))
+    tr.data_rng.bit_generator.state = state
+    tr.image_source.cursor = cursor
+    tr.train(log_fn=lambda *a: None)
+    norms = {k: float(g.double().norm()) for k, g in zip(keys, grads)}
+    return (np.asarray(tr.train_loss_history, np.float64), norms,
+            flat_tree(checkpoint.params_to_numpy(tr.params)), flat_tree(init))
+
+
+def check_train_parity(fx, run):
+    """Phase 15's comparison of a port run (train_parity_run) with the JAX
+    trainer's fixture. Tolerances:
+      * losses, rtol 1e-4 (iteration 1: the same parameters and batch;
+        iterations 2-3 after Adam steps at lr 1e-5, where this run's own
+        float32 and float64 losses part by 4e-6);
+      * first-iteration gradient norms, rtol 2e-3, for the leaves whose
+        norm is at least 1e-6 of the largest (float32 gradients of this
+        arithmetic carry 2e-3 to 7e-3 relative error against float64, the
+        instance norm's one-pass variance amplifying each side's rounding;
+        the two packages part by 2e-4 to 4.3e-4 here); the leaves below
+        that are the conv biases that instance norm cancels, whose exact
+        gradient is 0: the port's norm must be below 1e-6 of its largest
+        too;
+      * final parameters, per-leaf sum and sum of absolute values within
+        2e-5 of the reference's sum of absolute values (measured: up to
+        3.4e-6; Adam moves the elements whose gradient is at the noise
+        floor by noise, 2 lr at most per step); for the cancelled
+        biases, whose Adam updates follow float noise, within Adam's bound
+        of 2 lr per element per iteration.
+    Returns the worst relative figures {"loss", "grad_norm", "param"};
+    raises on a miss."""
+    import numpy as np
+
+    losses, norms, final, init = run
+    want = np.asarray(fx["losses"])
+    rel_loss = np.abs(losses - want) / np.abs(want)
+    if losses.shape != want.shape or not (rel_loss <= 1e-4).all():
+        raise AssertionError(f"train parity: losses {losses} vs {want}")
+    top = max(float(fx[f"grad_norm/{k}"]) for k in norms)
+    top_port = max(norms.values())
+    worst_g, worst_p, noise = 0.0, 0.0, []
+    for k, got in norms.items():
+        ref = float(fx[f"grad_norm/{k}"])
+        p = final[k].astype(np.float64)
+        s, a = float(fx[f"param_sum/{k}"]), float(fx[f"param_abs/{k}"])
+        if ref < 1e-6 * top:
+            noise.append(k)
+            bound = 2 * PARITY_LR * PARITY_ITERS * p.size
+            if not (got < 1e-6 * top_port and abs(p.sum() - s) <= bound
+                    and abs(np.abs(p).sum() - a) <= bound):
+                raise AssertionError(f"train parity: cancelled leaf {k}: norm {got} vs {ref}, "
+                                     f"sums {p.sum()} / {np.abs(p).sum()} vs {s} / {a}")
+            continue
+        rel_g = abs(got - ref) / ref
+        rel_p = max(abs(p.sum() - s), abs(np.abs(p).sum() - a)) / a
+        worst_g, worst_p = max(worst_g, rel_g), max(worst_p, rel_p)
+        if rel_g > 2e-3 or rel_p > 2e-5:
+            raise AssertionError(f"train parity: {k}: gradient norm {got} vs {ref} "
+                                 f"({rel_g:.3g}), final params off by {rel_p:.3g}")
+    log(f"train parity: losses {losses.tolist()} vs JAX {want.tolist()} (max rel "
+        f"{rel_loss.max():.3g}, tol 1e-4); gradient norms max rel {worst_g:.3g} (tol 2e-3) "
+        f"over {len(norms) - len(noise)} leaves; final params max rel {worst_p:.3g} (tol 2e-5); "
+        f"{len(noise)} cancelled biases within Adam's bound")
+    return {"loss": float(rel_loss.max()), "grad_norm": worst_g, "param": worst_p}
+
+
+class TrainProbe:
+    """Phase 14's instrumentation of one trainer, in this script: it wraps
+    the trainer's step methods (instance attributes over the class's) to
+    count each kernel's launches around every stylizer pass and backward,
+    and to time the parts of each train step on CUDA events. A
+    forward-only pass (``_model`` with grad False) must launch K4 exactly
+    10 times (the five residual blocks' two convs at batch 4) on the C
+    entry conv_route names for the dtype, and no other kernel; the
+    gradient pass (``_model`` with grad True, and ``_backward``) must
+    launch none."""
+
+    def __init__(self, torch, trainer, kernels, dname):
+        self.torch, self.kernels, self.entry = torch, kernels, ENTRIES[dname]["conv3x3"]
+        self.batches, self.iters, self.passes = [], [], {True: 0, False: 0}
+        self._cur = None
+        for name in ("_get_batch", "_model", "_loss_fn", "_backward", "_optimizer_step",
+                     "_train_step"):
+            setattr(trainer, name, self._wrap(name, getattr(trainer, name)))
+
+    def _event(self):
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def _counts(self):
+        return {n: (k.launches, dict(k.routes)) for n, k in self.kernels.items()}
+
+    def _check(self, name, grad, before, after):
+        want = dict(before)
+        if not grad:
+            n, routes = before["conv3x3"]
+            routes = dict(routes)
+            routes[self.entry] = routes.get(self.entry, 0) + 10
+            want["conv3x3"] = (n + 10, routes)
+        if after != want:
+            raise AssertionError(f"training {name} (grad {grad}): launches {after}, "
+                                 f"expected {want}")
+        self.passes[grad] += 1
+
+    def _wrap(self, name, fn):
+        def wrapped(*a, **kw):
+            if name == "_get_batch" and a[0] == "train":
+                self._cur = {"start": self._event(), "fwd": [], "fwd_shapes": [], "loss": [],
+                             "bwd": [], "opt": []}
+            before = self._counts()
+            s = self._event()
+            out = fn(*a, **kw)
+            e = self._event()
+            grad = kw["grad"] if "grad" in kw else a[2] if name == "_model" else None
+            if name == "_get_batch":
+                self.batches.append((a[0], a[1], out[3]))
+            elif name == "_model":
+                self._check(name, grad, before, self._counts())
+            elif name == "_backward":
+                self._check(name, True, before, self._counts())
+            cur = self._cur
+            if cur is not None:
+                if name == "_model" and not grad:
+                    cur["fwd"].append((s, e))
+                    cur["fwd_shapes"].append(tuple(a[1].shape))
+                elif name in ("_loss_fn", "_backward", "_optimizer_step"):
+                    cur[{"_loss_fn": "loss", "_backward": "bwd",
+                         "_optimizer_step": "opt"}[name]].append((s, e))
+                elif name == "_train_step":
+                    cur["step"], cur["end"] = s, e
+                    self.iters.append(cur)
+                    self._cur = None
+            return out
+        return wrapped
+
+    def expected_k4(self):
+        """K4's launches the recorded batches need: 10 per forward-only
+        pass, i.e. per train batch frame 1 (unless single_image) and the
+        steps before the last, per validation batch frame 1 and every step."""
+        n = 0
+        for split, source, steps in self.batches:
+            n += (source != "single_image") + (steps - 1 if split == "train" else steps)
+        return 10 * n
+
+    def times(self, last):
+        """Median ms over the last `last` iterations of the whole iteration
+        (its batch, then its step), the batch (host sampling and the copy
+        to the card), the forward-only passes, the gradient pass (forward
+        and backward) and the optimizer step."""
+        self.torch.cuda.synchronize()
+
+        def ms(pairs):
+            return sum(s.elapsed_time(e) for s, e in pairs)
+        rows = [{"iteration": it["start"].elapsed_time(it["end"]),
+                 "batch": it["start"].elapsed_time(it["step"]),
+                 "forward_only": ms(it["fwd"]),
+                 "gradient_pass": ms(it["loss"]) - ms(it["fwd"]) + ms(it["bwd"]),
+                 "optimizer": ms(it["opt"])} for it in self.iters[-last:]]
+        return {k: _median([r[k] for r in rows]) for k in rows[0]}
+
+
+def _flops(fn):
+    """Floating-point operations of fn() by torch's FlopCounterMode (convs
+    and matrix products, forward and backward)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return fc.get_total_flops()
+
+
+def train_bound(torch, trainer, probe, last, dname):
+    """The least time of the last `last` train iterations' work (mean ms
+    per iteration) from their operations: each forward-only pass at the
+    shape it ran, the last step's stylizer forward and backward (dX and
+    dW), and the loss network's forward on the output, its dX backward and
+    the content target's forward, Gram products included; counted by
+    FlopCounterMode on the plain path (the kernels do the same convs). The
+    stylizer's operations at the peak of its dtype, the loss network's
+    (float32) at the float32 peak. Returns (bound ms, stylizer GFLOP,
+    loss-network GFLOP) per iteration."""
+    from fast_artistic_videos_tpu_torch.core import device as device_mod
+    from fast_artistic_videos_tpu_torch.models import stylizer
+    from fast_artistic_videos_tpu_torch.train import losses
+
+    n, s, dev = TRAIN_BATCH, TRAIN_SIZE, trainer.device
+    dtype = torch.bfloat16 if dname == "bfloat16" else torch.float32
+
+    def trainable(tree):
+        return {k: trainable(v) if isinstance(v, dict) else v.detach().clone().requires_grad_()
+                for k, v in tree.items()}
+    params = trainable(trainer.params)
+    cache = {}
+
+    def fwd(shape):
+        if shape not in cache:
+            x = torch.zeros(shape, device=dev)
+            with torch.no_grad(), device_mod.float32_convs():
+                cache[shape] = _flops(lambda: stylizer.apply(params, trainer.spec, x,
+                                                             dtype=dtype, fused=False))
+        return cache[shape]
+
+    def grad_pass():
+        x = torch.zeros((n, s, s, 7), device=dev)
+        with device_mod.float32_convs():
+            stylizer.apply(params, trainer.spec, x, dtype=dtype, fused=False).float().sum(
+                ).backward()
+
+    def loss_pass():
+        out = torch.zeros((n, s, s, 3), device=dev, requires_grad=True)
+        with device_mod.float32_convs():
+            loss, _ = losses.perceptual_loss(trainer.vgg_params, out, out.detach(),
+                                             trainer.style_tgts, trainer.percep_cfg)
+            loss.backward()
+    f_grad, f_loss = _flops(grad_pass), _flops(loss_pass)
+    its = probe.iters[-last:]
+    sty = sum(f_grad + sum(fwd(sh) for sh in it["fwd_shapes"]) for it in its) / len(its)
+    ms = (sty / PEAK_FLOPS[dname] + f_loss / PEAK_FLOPS["float32"]) * 1e3
+    return ms, sty / 1e9, f_loss / 1e9
+
+
+def train_profile(torch, trainer, n):
+    """n more iterations of `trainer` under torch.profiler (CUDA activity
+    only): the device's kernel time per iteration (ms) and the 8 kernels
+    with the most of it, (ms per iteration, name, launches per iteration)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        trainer.train(trainer.iteration + n, log_fn=lambda *a: None)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        ms = getattr(ev, "self_device_time_total", None)
+        ms = (ms if ms is not None else getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        if ms > 0:
+            rows.append((round(ms / n, 3), ev.key[:60], ev.count // n))
+    rows.sort(reverse=True)
+    return {"device_ms": _device_events(prof)[0] / n, "top_kernels": rows[:8]}
+
+
+def _param_copy(trainer):
+    from fast_artistic_videos_tpu_torch.train.trainer import leaves
+
+    return [t.detach().clone() for t in leaves(trainer.params)]
+
+
+# phase 14's resume check. A trainer restored from the iteration-5
+# checkpoint runs on to 10 beside the uninterrupted one; it need not match
+# bit for bit on the card (cuDNN's backward algorithms and K4's
+# forward-only launches need not be deterministic), so it is held to
+# limits: the losses of iterations 6-10 relative to the uninterrupted
+# run's, and each parameter leaf's distance from the uninterrupted run's,
+# relative L2 to that run's update of the leaf since the checkpoint. The
+# conv biases an instance norm follows have an exact gradient of 0 and
+# move by float noise: Adam moves them by at most 2 lr an element a step
+# (lr 1e-3, 5 steps). Each planted fault (RESUME_FAULTS, besides "" for
+# the true resume) must miss a limit. Measured by this script in two runs
+# on an H100 (80GB HBM3, 700 W): the true resume's losses within 1.1e-7 to
+# 4.0e-6 (float32) and 2.9e-5 to 6.0e-5 (bfloat16), its leaves within
+# 6.9e-5 to 4.7e-4 and 6.4e-4 to 1.6e-3; the planted faults' losses 0.13
+# and more, their leaves 0.09 and more. The limits stand about 10x above
+# the true resume's largest gap (the float32 gap moved 37x between the two
+# runs) and at least 4.5x below the faults' smallest.
+RESUME_LIMITS = {"float32": {"loss": 5e-5, "leaf": 5e-3},
+                 "bfloat16": {"loss": 5e-4, "leaf": 2e-2}}
+RESUME_CANCELLED_ABS = 2 * 1e-3 * (TRAIN_ITERS - TRAIN_ITERS // 2)
+RESUME_FAULTS = ("", "fresh optimizer", "data generator from its seed")
+
+
+def _plant(fault, trainer, opt):
+    """Break a restored trainer's state as `fault` names ("" = none): Adam
+    afresh (its moments and step count lost), or the data generator put
+    back to its seed (the batches and the data-mix wheel drawn anew)."""
+    import numpy as np
+
+    if fault == "fresh optimizer":
+        trainer.optimizer = trainer._make_optimizer()
+    elif fault == "data generator from its seed":
+        trainer.data_rng = np.random.default_rng(opt.seed + 1)
+
+
+def cancelled_biases(spec):
+    """The flat keys of the per-channel additive terms that an instance
+    norm cancels, whose exact gradient is 0: the bias of every conv with a
+    norm after it, both conv biases of a residual block, and the last
+    additive term before a nearest upsample with a norm after it."""
+    if not spec.use_instance_norm:
+        return set()
+    out = set()
+    for i, layer in enumerate(spec.layers):
+        if layer.kind == "res_block":
+            out |= {f"layer{i:02d}/conv1/b", f"layer{i:02d}/conv2/b"}
+        elif layer.kind == "upsample":
+            prev = spec.layers[i - 1] if i else None
+            if layer.norm_after and prev is not None:
+                out.add(f"layer{i - 1:02d}/norm2/bias" if prev.kind == "res_block" else
+                        f"layer{i - 1:02d}_norm/bias" if prev.norm_after else
+                        f"layer{i - 1:02d}/b")
+        elif layer.norm_after:
+            out.add(f"layer{i:02d}/b")
+    return out
+
+
+def resume_gap(a, r, at_ck, half, cancelled):
+    """How far the restored trainer r's run strays from the uninterrupted
+    a's over iterations half+1 on: the losses' largest relative gap, the
+    largest per-leaf relative L2 distance (to a's update since the
+    checkpoint, at_ck being r's parameters there) over the leaves that are
+    not cancelled biases, and the cancelled biases' largest element gap."""
+    from fast_artistic_videos_tpu_torch.models import checkpoint
+
+    keys = list(flat_tree(checkpoint.params_to_numpy(a.params)))   # leaves() order
+    loss = max(abs(x - y) / abs(y) for x, y in zip(r.train_loss_history[half:],
+                                                   a.train_loss_history[half:]))
+    leaf, noise = 0.0, 0.0
+    for k, pa, pr, p0 in zip(keys, _param_copy(a), _param_copy(r), at_ck):
+        d = (pr.double() - pa.double())
+        if k in cancelled:
+            noise = max(noise, float(d.abs().max()))
+        else:
+            leaf = max(leaf, float(d.norm() / (pa.double() - p0.double()).norm()))
+    return {"loss": loss, "leaf": leaf, "cancelled_abs": noise}
+
+
+def resume_misses(gap, dname):
+    """The limits a resume's gap misses (RESUME_LIMITS, RESUME_CANCELLED_ABS)."""
+    lim = RESUME_LIMITS[dname]
+    out = [k for k in ("loss", "leaf") if not gap[k] <= lim[k]]
+    return out + ([] if gap["cancelled_abs"] <= RESUME_CANCELLED_ABS else ["cancelled_abs"])
+
+
+def run_training(torch, workdir, smi):
+    """Phase 14: the style trainer at full width (canonical architecture,
+    256x256, batch 4, a full-width VGG-16 from a numpy seed, the bundled
+    candy style at 384 px, shift:1,zoom_out:1,vr:1, 1 step then 2 from
+    iteration 5, 10 iterations, validation and a checkpoint every 5),
+    float32 then bfloat16, on seeded uint8 images through ArraySource;
+    then fresh trainers restored from iteration 5 continue to 10 beside
+    the uninterrupted run: the true resume within RESUME_LIMITS, each
+    planted fault of RESUME_FAULTS outside them. Where h5py is installed, two more float32
+    iterations read an HDF5 written by the port's make_image_dataset.
+    Returns {dtype: figures}."""
+    import math
+
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.core.config import TrainOptions
+    from fast_artistic_videos_tpu_torch.models import registry
+    from fast_artistic_videos_tpu_torch.train.trainer import Trainer
+    from fast_artistic_videos_tpu_torch.video.evaluation import load_vgg_params
+
+    kernels = _kernels()
+    vgg_path = os.path.join(workdir, "vgg16.npz")
+    if not os.path.exists(vgg_path):
+        vgg_npz(EVAL_VGG_SEED, vgg_path)
+    vgg_params = load_vgg_params(vgg_path, "cuda")
+    images = seeded_images(TRAIN_IMAGE_SEED, TRAIN_IMAGES, TRAIN_SIZE)
+    half = TRAIN_ITERS // 2
+    cancelled = None
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        opt = TrainOptions(
+            train_img_size=f"{TRAIN_SIZE}:{TRAIN_SIZE}", batch_size=TRAIN_BATCH,
+            style_image=registry.style_fixture("candy"), style_image_size=384,
+            data_mix="shift:1,zoom_out:1,vr:1", num_frame_steps=f"0:1,{half - 1}:2",
+            num_iterations=TRAIN_ITERS, checkpoint_every=half, num_val_batches=1,
+            print_every=1, history_every=1, images_every=0, dtype=dname,
+            checkpoint_name=os.path.join(workdir, f"train_{dname}", "ck"))
+
+        def trainer():
+            tr = Trainer(opt, vgg_params=vgg_params, device="cuda")
+            tr.image_source = ArraySource(images, TRAIN_BATCH)
+            return tr
+        a = trainer()
+        cancelled = cancelled_biases(a.spec)
+        init = _param_copy(a)
+        probe = TrainProbe(torch, a, kernels, dname)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        t0 = time.monotonic()
+        a.train(half, log_fn=log)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        # the true resume and the planted faults, each restored from the
+        # iteration-5 checkpoint before the uninterrupted run overwrites it
+        restored = {}
+        for fault in RESUME_FAULTS:
+            r = trainer()
+            r.restore_train_state(opt.checkpoint_name + "_state")
+            _plant(fault, r, opt)
+            restored[fault] = (r, _param_copy(r))
+        t0 = time.monotonic()
+        a.train(TRAIN_ITERS, log_fn=log)
+        torch.cuda.synchronize()
+        secs += time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        k4 = kernels["conv3x3"]
+        launches = {name: k.launches for name, k in kernels.items()}
+        want = probe.expected_k4()
+        log(f"training {dname}: batches {probe.batches}; launches {launches}, K4 by entry "
+            f"{k4.routes}; K4 expected {want} (10 per forward-only pass: "
+            f"{probe.passes[False]} passes); {probe.passes[True]} gradient passes and "
+            f"backwards launched no kernel")
+        if (k4.launches != want or k4.routes != {ENTRIES[dname]["conv3x3"]: want}
+                or any(v for name, v in launches.items() if name != "conv3x3")
+                or probe.passes[False] * 10 != want):
+            raise AssertionError(f"training {dname}: launches {launches} {k4.routes} != "
+                                 f"K4 {want}")
+        losses_a = a.train_loss_history
+        if len(losses_a) != TRAIN_ITERS or not all(math.isfinite(v) for v in
+                                                   losses_a + a.val_loss_history):
+            raise AssertionError(f"training {dname}: losses {losses_a} {a.val_loss_history}")
+        moved = [bool((t != t0_).any()) for t, t0_ in zip(_param_copy(a), init)]
+        if not all(moved):
+            raise AssertionError(f"training {dname}: {moved.count(False)} parameter leaves "
+                                 f"did not move")
+        # the restored runs against the uninterrupted one: the true resume
+        # within the limits, each planted fault outside them
+        gaps = {}
+        for fault, (r, at_ck) in restored.items():
+            r.train(TRAIN_ITERS, log_fn=lambda *x: None)
+            gap = resume_gap(a, r, at_ck, half, cancelled)
+            misses = resume_misses(gap, dname)
+            log(f"training {dname} resume ({fault or 'no fault'}): losses of iterations "
+                f"{half + 1}-{TRAIN_ITERS} restored {r.train_loss_history[half:]} vs "
+                f"uninterrupted {losses_a[half:]}; {gap}; limits {RESUME_LIMITS[dname]}, "
+                f"cancelled biases {RESUME_CANCELLED_ABS:g} abs; missed {misses}")
+            if r.iteration != TRAIN_ITERS or bool(misses) != bool(fault):
+                raise AssertionError(f"training {dname} resume ({fault or 'no fault'}): "
+                                     f"{gap}, missed {misses}")
+            gaps[fault] = gap
+        del restored
+        t = probe.times(half)
+        bound_ms, sty_gflop, vgg_gflop = train_bound(torch, a, probe, half, dname)
+        t.update(bound_ms=bound_ms, stylizer_gflop=sty_gflop, loss_network_gflop=vgg_gflop,
+                 images_per_s=TRAIN_BATCH / t["iteration"] * 1e3, peak_gib=peak / 2 ** 30,
+                 k4_launches=launches["conv3x3"], seconds=secs, resume=gaps)
+        t.update(train_profile(torch, a, 2))
+        t["busy"] = t["device_ms"] / t["iteration"]
+        log(f"training {TRAIN_SIZE}^2 x{TRAIN_BATCH} {dname}: iteration {t['iteration']:.3f} ms "
+            f"(median of iterations {half + 1}-{TRAIN_ITERS}, CUDA events, its batch and step): "
+            f"batch {t['batch']:.3f}, forward-only passes {t['forward_only']:.3f}, gradient "
+            f"pass (forward and backward) {t['gradient_pass']:.3f}, optimizer "
+            f"{t['optimizer']:.3f} ms; kernel time {t['device_ms']:.3f} ms an iteration over 2 "
+            f"more (torch.profiler), busy share {t['busy']:.3f}; top kernels "
+            f"{t['top_kernels']}; "
+            f"{t['images_per_s']:.2f} images/s; peak {t['peak_gib']:.3f} GiB "
+            f"(max_memory_allocated); bound {bound_ms:.3f} ms by operations ({sty_gflop:.1f} "
+            f"GFLOP stylizer in {dname}, {vgg_gflop:.1f} GFLOP loss network in float32); "
+            f"{secs:.1f} s for the uninterrupted run; {smi}")
+        out[dname] = t
+        del a
+        torch.cuda.empty_cache()
+    out["h5py"] = _h5_training(torch, workdir, images, vgg_params)
+    return out
+
+
+def _h5_training(torch, workdir, images, vgg_params):
+    """Two float32 iterations read from an HDF5 that the port's
+    make_image_dataset writes from PNGs of the phase's images; None (and
+    said) when h5py is not installed."""
+    import math
+
+    try:
+        import h5py
+    except ImportError:
+        log("h5py: not installed on this host; the HDF5 sources and dataset tools were "
+            "not run (the trainer read ArraySource)")
+        return None
+    from fast_artistic_videos_tpu_torch.cli import make_image_dataset
+    from fast_artistic_videos_tpu_torch.core import io
+    from fast_artistic_videos_tpu_torch.core.config import TrainOptions
+    from fast_artistic_videos_tpu_torch.train.trainer import Trainer
+
+    d = os.path.join(workdir, "h5_images")
+    os.makedirs(d, exist_ok=True)
+    for i, img in enumerate(list(images["train"]) + list(images["val"])):
+        io.save_image(os.path.join(d, f"img_{i:03d}.png"), img)
+    h5 = os.path.join(workdir, "images.h5")
+    make_image_dataset.main(["--input_dir", d, "--output_file", h5, "--height",
+                             str(TRAIN_SIZE), "--width", str(TRAIN_SIZE),
+                             "--val_fraction", "0.25"])
+    opt = TrainOptions(h5_file=h5, train_img_size=f"{TRAIN_SIZE}:{TRAIN_SIZE}",
+                       batch_size=TRAIN_BATCH, data_mix="shift:1,zoom_out:1",
+                       num_iterations=2, checkpoint_every=10 ** 9, images_every=0,
+                       print_every=1, history_every=1)
+    tr = Trainer(opt, vgg_params=vgg_params, device="cuda")
+    tr.train(log_fn=log)
+    if not all(math.isfinite(v) for v in tr.train_loss_history):
+        raise AssertionError(f"h5 training: losses {tr.train_loss_history}")
+    log(f"h5py {h5py.__version__}: make_image_dataset wrote {h5}; 2 iterations from it, "
+        f"losses {tr.train_loss_history}")
+    return h5py.__version__
+
+
+def check_train_fixture(torch, workdir):
+    """Phase 15: the port's trainer in float32 on the card against the JAX
+    trainer's fixture (tests/fixtures/torch_parity_train.npz,
+    check_train_parity's tolerances)."""
+    import numpy as np
+
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_parity_train.npz")) as z:
+        fx = {k: z[k] for k in z.files}
+    vgg = vgg_npz(int(fx["vgg_seed"]), os.path.join(workdir, "train_fixture_vgg16.npz"))
+    return check_train_parity(fx, train_parity_run(torch, "cuda", vgg))
+
+
+def run_flow_training(torch, k1, smi):
+    """Phase 16: train_flow_synthetic from the bundled weights (256-px
+    crops, batch 4, 20 iterations) on the card, whose gradient passes
+    launch no kernel; then evaluate_heldout on the bundled weights at the
+    fixture's size through K1 (3 feature warps per estimate), against the
+    JAX function's results (tests/fixtures/torch_parity_flow_eval.npz):
+    EPE rtol 1e-4, pass rates within 1e-3 (a pass rate counts pixels on
+    either side of the check's threshold; 1e-3 is 37 of the 192^2)."""
+    import math
+
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.flow import estimator, train as flow_train
+
+    kernels = _kernels()
+    params = estimator.load_params("bundled", "cuda")
+    step, steps = flow_train._step, []
+
+    def timed(*a):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        loss = step(*a)
+        e.record()
+        steps.append((s, e, loss))
+        return loss
+    _reset(kernels)
+    flow_train._step = timed
+    try:
+        t0 = time.monotonic()
+        trained = flow_train.train_flow_synthetic(
+            iterations=FLOW_TRAIN_ITERS, batch_size=FLOW_TRAIN_BATCH, size=FLOW_TRAIN_SIZE,
+            pool=FLOW_TRAIN_POOL, params=params, seed=3, log_every=10, log_fn=log,
+            device="cuda")
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+    finally:
+        flow_train._step = step
+    launches = {name: k.launches for name, k in kernels.items()}
+    losses = [float(x) for _, _, x in steps]
+    step_ms = _median([s.elapsed_time(e) for s, e, _ in steps[FLOW_TRAIN_ITERS // 2:]])
+    if any(launches.values()) or len(losses) != FLOW_TRAIN_ITERS or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"flow training: launches {launches}, losses {losses}")
+    if not all(bool(torch.isfinite(t).all()) for v in trained.values() for t in v.values()):
+        raise AssertionError("flow training: non-finite weights")
+    log(f"flow training {FLOW_TRAIN_SIZE}^2 x{FLOW_TRAIN_BATCH}, {FLOW_TRAIN_ITERS} iterations "
+        f"from the bundled weights: losses {[round(v, 4) for v in losses]}, launches "
+        f"{launches} (the gradient passes take the banded warp's plain version); step "
+        f"{step_ms:.3f} ms (CUDA events, median of the last {FLOW_TRAIN_ITERS // 2}: pair "
+        f"synthesis, forward, backward, Adam); {secs:.1f} s with the image pool; {smi}")
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_parity_flow_eval.npz")) as z:
+        fx = {k: z[k] for k in z.files}
+    _reset(kernels)
+    with k1.recording():
+        res = flow_train.evaluate_heldout(params, size=int(fx["size"]),
+                                          n_cases=int(fx["n_cases"]))
+    k1.check(kernels["warp_banded"], "flow evaluation")
+    want_k1 = len(fx["protocols"]) * int(fx["n_cases"]) * 2 * 3
+    got = np.asarray([res[str(p)] for p in fx["protocols"]])
+    want = fx["results"]
+    epe_rel = np.abs(got[:, :2] - want[:, :2]) / want[:, :2]
+    pass_abs = np.abs(got[:, 2:] - want[:, 2:])
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"flow evaluation {int(fx['size'])}^2 x{int(fx['n_cases'])} cases: {res}; launches "
+        f"{launches} (K1 expected {want_k1}); against the JAX fixture EPE max rel "
+        f"{epe_rel.max():.3g} (tol 1e-4), pass rates max abs {pass_abs.max():.3g} (tol 1e-3)")
+    if (launches["warp_banded"] != want_k1 or epe_rel.max() > 1e-4
+            or pass_abs.max() > 1e-3):
+        raise AssertionError(f"flow evaluation: {got} vs {want}, launches {launches}")
+    return {"step_ms": step_ms, "seconds": secs, "epe_rel": float(epe_rel.max()),
+            "pass_abs": float(pass_abs.max())}
+
+
 def main() -> int:
     try:
         import torch
@@ -1823,8 +2627,19 @@ def main() -> int:
         eval_worst = check_eval_fixture(torch, work)
         ff = run_flow_file_paths(torch, work, k1, smi)
         t_new = time.monotonic() - t_new
-    # 3, continued: K1 at every shape phases 4, 6, 9, 11 and 13 launched
+        # 14. the style trainer; 15. the trainer against the JAX trainer's
+        # fixture; 16. flow training, and the flow evaluation through K1
+        t_train = time.monotonic()
+        k4 = ConvShapes()
+        with k4.recording():
+            training = run_training(torch, work, smi)
+            parity = check_train_fixture(torch, work)
+        flow_tr = run_flow_training(torch, k1, smi)
+        t_train = time.monotonic() - t_train
+    # 3, continued: K1 at every shape phases 4, 6, 9, 11, 13 and 16 launched,
+    # K4 at every shape phases 14 and 15 launched
     check_recorded_warps(torch, res, k1)
+    check_recorded_convs(torch, res, k4)
     torch.cuda.synchronize()
 
     rows = []
@@ -1859,6 +2674,17 @@ def main() -> int:
                             "max_abs_err": max(c["err"] for c in cases
                                                if c["dtype"] == torch.bfloat16),
                             **figures(bf)}}
+        if name == "conv3x3":
+            # K4's launches on the training path (phase 14's uninterrupted
+            # runs: 10 per forward-only pass at batch 4), and phase 3's
+            # cases at every shape phases 14 and 15 launched it at, on the
+            # inputs of the first launch there
+            row["training_launches"] = {d: training[d]["k4_launches"]
+                                        for d in ("float32", "bfloat16")}
+            row["training_cases"] = [
+                {"shape": c["shape"], "dtype": _dname(torch, c["dtype"]), "entry": c["entry"],
+                 "where": c["where"], "rel_l2": c["rel_l2"], "max_abs_err": c["err"],
+                 "device_by": c["device_by"], **figures(c)} for c in cases if c["where"] != "block conv"]
         if name == "strip_warp_sum":
             # the blend beside the composition it replaced and the same
             # composition over grid_sample, both dtypes of the faces
@@ -1909,6 +2735,17 @@ def main() -> int:
         f"fixture max relative error {eval_worst:.3g}; make_opt_flow {ff['make_opt_flow_s']:.3f} s "
         f"for {ff['pairs']} pairs, stylize_vr_video_file {ff['vr_file_s']:.3f} s for {EQUI_FRAMES} frames; "
         f"phases 11-13 took {t_new:.1f} s; {smi}")
+    for d in ("float32", "bfloat16"):
+        t = training[d]
+        log(f"training {TRAIN_SIZE}^2 x{TRAIN_BATCH} {d}: iteration {t['iteration']:.3f} ms "
+            f"(batch {t['batch']:.3f}, forward-only {t['forward_only']:.3f}, gradient pass "
+            f"{t['gradient_pass']:.3f}, optimizer {t['optimizer']:.3f}; busy share "
+            f"{t['busy']:.3f}), {t['images_per_s']:.2f} images/s, peak "
+            f"{t['peak_gib']:.3f} GiB, bound {t['bound_ms']:.3f} ms, K4 {t['k4_launches']} "
+            f"launches")
+    log(f"trainer fixture parity {parity}; h5py {training['h5py']}; flow training step "
+        f"{flow_tr['step_ms']:.3f} ms, flow evaluation fixture EPE rel {flow_tr['epe_rel']:.3g}, "
+        f"pass abs {flow_tr['pass_abs']:.3g}; phases 14-16 took {t_train:.1f} s; {smi}")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

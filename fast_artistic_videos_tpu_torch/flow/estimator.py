@@ -1,13 +1,17 @@
 """Optical flow estimation with the compact PWC-style network — counterpart
-of ``fast_artistic_videos_tpu/flow/estimator.py`` (inference: feature
+of ``fast_artistic_videos_tpu/flow/estimator.py``: inference (feature
 pyramid, coarse-to-fine refinement with a radius-3 cost volume, the
 context head, the streaming ``prep`` / ``refine_pair`` entry points and
 their batch forms ``prep_batch`` / ``refine_pair_batch`` for the VR
-driver's six cube faces).
+driver's six cube faces) and the training half (``init_params``,
+``init_context``, ``add_context``, ``apply``, ``apply_multiscale``,
+``save_params``; ``flow/train.py`` trains through ``apply_multiscale``).
 
 Its convs are plain ``F.conv2d`` (the JAX package leaves them to XLA), in
 float32 without TF32 (``core.device.float32_convs``); the
-feature warps go through the banded warp, kernel K1 on CUDA. Activations
+feature warps go through the banded warp, kernel K1 on CUDA, except in
+``apply_multiscale``, the training entry, which takes the banded form's
+differentiable plain version (K1 has no backward). Activations
 are NHWC at every function boundary; flow is (N, H, W, 2) (dx, dy) float32
 in pixels of the level it lives on.
 """
@@ -22,7 +26,7 @@ import torch.nn.functional as F
 
 from ..core import device as device_mod
 from ..models import registry
-from ..models.checkpoint import params_from_numpy
+from ..models.checkpoint import params_from_numpy, params_to_numpy
 from ..ops import warp as warp_ops
 
 # (out_channels per level), finest first. Level l runs at stride 2^(l+1).
@@ -56,6 +60,62 @@ def _conv(params, name, x, stride=1, relu=True, dilation=1):
         y = F.conv2d(xc, w, None, stride, 0, dilation).permute(0, 2, 3, 1)
     y = y + p["b"].to(x.dtype)
     return F.leaky_relu(y, 0.1) if relu else y
+
+
+def _init_conv(gen, k, cin, cout):
+    """He-normal weights (OIHW), zero bias: the JAX package's law."""
+    scale = (2.0 / (k * k * cin)) ** 0.5
+    return {"w": torch.randn((cout, cin, k, k), generator=gen, device=gen.device) * scale,
+            "b": torch.zeros((cout,), device=gen.device)}
+
+
+def init_params(generator: torch.Generator, context: bool = False,
+                device=device_mod.DEFAULT) -> Params:
+    """Random estimator weights drawn from `generator` on its device (the
+    JAX package's tree and law, not its draws), on `device` (the card
+    unless ``device="cpu"``); with the context head if `context`."""
+    dev = device_mod.resolve(device)
+    params: Params = {}
+    cin = 3
+    for lvl, cout in enumerate(PYRAMID_CHANNELS):
+        params[f"pyr{lvl}_a"] = _init_conv(generator, 3, cin, cout)
+        params[f"pyr{lvl}_b"] = _init_conv(generator, 3, cout, cout)
+        cin = cout
+    cost_ch = (2 * COST_RADIUS + 1) ** 2
+    for lvl in range(len(PYRAMID_CHANNELS)):
+        cin_est = cost_ch + PYRAMID_CHANNELS[lvl] + 2
+        for i, cout in enumerate(ESTIMATOR_CHANNELS):
+            params[f"est{lvl}_{i}"] = _init_conv(generator, 3, cin_est, cout)
+            cin_est = cout
+        params[f"est{lvl}_out"] = _init_conv(generator, 3, cin_est, 2)
+    if context:
+        params.update(init_context(generator, device=generator.device))
+    return {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+
+
+def init_context(generator: torch.Generator, device=device_mod.DEFAULT) -> Params:
+    """The context head's parameters alone (CONTEXT_CHANNELS). Its output
+    conv is zero, so grafting it onto trained weights changes nothing until
+    it is fine-tuned (:func:`add_context`)."""
+    dev = device_mod.resolve(device)
+    params: Params = {}
+    cin = ESTIMATOR_CHANNELS[-1] + 2  # the finest estimator features + flow
+    for i, cout in enumerate(CONTEXT_CHANNELS):
+        params[f"ctx_{i}"] = _init_conv(generator, 3, cin, cout)
+        cin = cout
+    params["ctx_out"] = {"w": torch.zeros((2, cin, 3, 3), device=generator.device),
+                         "b": torch.zeros((2,), device=generator.device)}
+    return {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+
+
+def add_context(params: Params, generator: torch.Generator) -> Params:
+    """`params` with a (no-op) context head grafted on, on the parameters'
+    device: the fine-tune entry for upgrading trained weights in place."""
+    if "ctx_out" in params:
+        return params
+    out = dict(params)
+    out.update(init_context(generator, device=params["pyr0_a"]["w"].device))
+    return out
 
 
 def _pyramid(params, img):
@@ -92,14 +152,16 @@ def _upsample2_flow(flow):
 
 
 def refine(params, f1s, f2s, collect: bool = False, skip_finest: int = 0,
-           init_flow=None, run_levels: int = None):
+           init_flow=None, run_levels: int = None, differentiable: bool = False):
     """Coarse-to-fine refinement from two feature pyramids. Returns the flow
     at pyramid-input resolution, or with collect the per-level estimates
     (coarsest first, level pixel units).
 
     skip_finest=k stops k levels early and upsamples the coarser estimate.
     init_flow + run_levels start at level (skip_finest + run_levels - 1)
-    from init_flow (that level's pixel units) instead of zeros."""
+    from init_flow (that level's pixel units) instead of zeros.
+    differentiable: the feature warps take the banded form's plain version
+    (autograd) instead of kernel K1."""
     flow = None
     outs: List[torch.Tensor] = []
     top = len(PYRAMID_CHANNELS)
@@ -109,13 +171,15 @@ def refine(params, f1s, f2s, collect: bool = False, skip_finest: int = 0,
         f1, f2 = f1s[lvl], f2s[lvl]
         if flow is None and init_flow is not None:
             flow = init_flow.float()
-            f2w = warp_ops.bilinear_warp(f2, flow, band=WARP_BAND)
+            f2w = warp_ops.bilinear_warp(f2, flow, band=WARP_BAND,
+                                         differentiable=differentiable)
         elif flow is None:
             flow = torch.zeros(f1.shape[:3] + (2,), device=f1.device)
             f2w = f2
         else:
             flow = _upsample2_flow(flow)
-            f2w = warp_ops.bilinear_warp(f2, flow, band=WARP_BAND)
+            f2w = warp_ops.bilinear_warp(f2, flow, band=WARP_BAND,
+                                         differentiable=differentiable)
         cost = F.leaky_relu(_cost_volume(f1, f2w, COST_RADIUS), 0.1)
         x = torch.cat([cost, f1, flow.to(f1.dtype)], dim=-1)
         for i in range(len(ESTIMATOR_CHANNELS)):
@@ -135,6 +199,22 @@ def refine(params, f1s, f2s, collect: bool = False, skip_finest: int = 0,
     for _ in range(1 + skip_finest):
         flow = _upsample2_flow(flow)
     return flow
+
+
+def apply(params: Params, img1, img2):
+    """img1, img2: (N, H, W, 3) RGB [0, 1], H and W multiples of STRIDE.
+    The flow (N, H, W, 2) (dx, dy) in pixels mapping img1's pixels to
+    their positions in img2. Forward only: the feature warps launch K1 on
+    the card."""
+    return refine(params, extract_pyramid(params, img1), extract_pyramid(params, img2))
+
+
+def apply_multiscale(params: Params, img1, img2):
+    """The training entry: the flow estimate of every pyramid level
+    (coarsest first), in that level's pixel units. Differentiable: the
+    feature warps take the banded form's plain version, not K1."""
+    return refine(params, extract_pyramid(params, img1), extract_pyramid(params, img2),
+                  collect=True, differentiable=True)
 
 
 def resize_bilinear(x, size):
@@ -265,6 +345,15 @@ class FlowEstimator:
         if (hs, ws) != (h, w):
             full = resize_bilinear(low_ab, (h, w)) / flow_scale
         return full, low_ab, low_ba, low_ab.abs().max()
+
+
+def save_params(path: str, params: Params) -> None:
+    """Write estimator weights as .npz with ``name/leaf`` keys in the JAX
+    package's layout (HWIO kernels), which both packages' ``load_params``
+    read."""
+    flat = {f"{name}/{leaf}": v for name, leaves in params_to_numpy(params).items()
+            for leaf, v in leaves.items()}
+    np.savez(path, **flat)
 
 
 def load_params(path: str, device=device_mod.DEFAULT) -> Params:

@@ -73,6 +73,21 @@ def params_from_numpy(tree: Dict[str, Any], device=device_mod.DEFAULT) -> Dict[s
     return out
 
 
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: a tree of torch tensors ->
+    float32 numpy arrays in the JAX package's layout (4-D conv kernels
+    OIHW -> HWIO), as :func:`save_model` and the JAX package's
+    ``load_model`` take them."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = params_to_numpy(v)
+            continue
+        a = v.detach().float().cpu().numpy()
+        out[k] = np.ascontiguousarray(a.transpose(2, 3, 1, 0) if a.ndim == 4 else a)
+    return out
+
+
 def load_model(path: str, device=device_mod.DEFAULT
                ) -> Tuple[ModelSpec, Dict[str, Any], Dict[str, Any]]:
     """Returns (spec, params, meta) with params as OIHW torch tensors on

@@ -185,25 +185,26 @@ def supports_phase_io(spec: ModelSpec) -> bool:
 def _init_conv(gen, ksize, in_ch, out_ch):
     """U(-stdv, stdv) weights (OIHW) and bias, stdv = 1/sqrt(k*k*in)."""
     stdv = 1.0 / (ksize * ksize * in_ch) ** 0.5
-    w = (torch.rand((out_ch, in_ch, ksize, ksize), generator=gen) * 2 - 1) * stdv
-    b = (torch.rand((out_ch,), generator=gen) * 2 - 1) * stdv
+    w = (torch.rand((out_ch, in_ch, ksize, ksize), generator=gen, device=gen.device)
+         * 2 - 1) * stdv
+    b = (torch.rand((out_ch,), generator=gen, device=gen.device) * 2 - 1) * stdv
     return {"w": w, "b": b}
 
 
 def _init_norm(gen, ch, use_instance_norm: bool):
     if use_instance_norm:
-        scale = torch.rand((ch,), generator=gen)
+        scale = torch.rand((ch,), generator=gen, device=gen.device)
     else:
-        scale = torch.ones((ch,))
-    return {"scale": scale, "bias": torch.zeros((ch,))}
+        scale = torch.ones((ch,), device=gen.device)
+    return {"scale": scale, "bias": torch.zeros((ch,), device=gen.device)}
 
 
 def init_params(generator: torch.Generator, spec: ModelSpec,
                 device=device_mod.DEFAULT) -> Params:
     """Random parameters with the JAX package's ``init_params`` tree and
-    distributions, drawn from `generator` (a CPU torch.Generator; its
-    numbers differ from jax.random's) and placed on `device` (the card
-    unless ``device="cpu"``)."""
+    distributions, drawn from `generator` on its own device (its numbers
+    differ from jax.random's) and placed on `device` (the card unless
+    ``device="cpu"``)."""
     dev = device_mod.resolve(device)
     params: Params = {}
     in_ch = spec.in_channels

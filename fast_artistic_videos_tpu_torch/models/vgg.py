@@ -44,17 +44,19 @@ VGG16_LAYOUT: Tuple[Tuple[int, str, int, int], ...] = tuple(
 
 def init_params(generator: torch.Generator, device=device_mod.DEFAULT
                 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Random VGG-16 weights from `generator`, uniform in (-stdv, stdv) with
-    stdv = 1/sqrt(9 Cin) per layer (the JAX version's law; not its draws),
-    as OIHW tensors on `device` (the card unless ``device="cpu"``)."""
+    """Random VGG-16 weights drawn from `generator` on its device, uniform
+    in (-stdv, stdv) with stdv = 1/sqrt(9 Cin) per layer (the JAX
+    version's law; not its draws), as OIHW tensors on `device` (the card
+    unless ``device="cpu"``)."""
     dev = device_mod.resolve(device)
     params = {}
     for idx, op, cin, cout in VGG16_LAYOUT:
         if op != "conv":
             continue
         stdv = 1.0 / (3 * 3 * cin) ** 0.5
-        w = torch.rand((cout, cin, 3, 3), generator=generator) * (2 * stdv) - stdv
-        b = torch.rand((cout,), generator=generator) * (2 * stdv) - stdv
+        w = torch.rand((cout, cin, 3, 3), generator=generator,
+                       device=generator.device) * (2 * stdv) - stdv
+        b = torch.rand((cout,), generator=generator, device=generator.device) * (2 * stdv) - stdv
         params[f"conv{idx:02d}"] = {"w": w.to(dev), "b": b.to(dev)}
     return params
 

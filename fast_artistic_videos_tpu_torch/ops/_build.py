@@ -183,6 +183,22 @@ class Kernel:
             self.routes[name] = self.routes.get(name, 0) + 1
 
 
+def no_grad_inputs(name: str, *tensors):
+    """Raise when a kernel entry is asked to carry a gradient: under grad
+    mode, an input or weight that requires grad. The kernels have no
+    backward (their outputs come out of :meth:`Kernel.call` with no
+    ``grad_fn``), so a gradient through them would be cut without a word.
+    Checked on every device, so the CPU tests reach it too; callers that
+    differentiate take the plain PyTorch path (``stylizer.apply(...,
+    fused=False)``, ``ops.warp.bilinear_warp(..., differentiable=True)``).
+    None and non-tensor arguments are skipped."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel has no backward; "
+            f"run it under torch.no_grad() or take the differentiable plain path")
+
+
 def ptr(t):
     """A tensor's data pointer for a ``c_void_p`` argument (None: NULL)."""
     return t.data_ptr() if t is not None else None

@@ -39,7 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import Kernel, ptr
+from ._build import Kernel, no_grad_inputs, ptr
 
 TC_ENTRY = "fav_conv_tc"
 FRONT_TC_ENTRY = "fav_front_tc"
@@ -230,7 +230,9 @@ def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
     """Launch `kernel` (K2 or K3) on a CUDA tensor, on the route that
     :func:`conv_route` names (the front's routes take no skip and no
     emission); plain version on CPU. Returns (y,
-    stats) or (y, stats, a) with emit_input."""
+    stats) or (y, stats, a) with emit_input. Raises on any device when
+    asked to carry a gradient (``_build.no_grad_inputs``)."""
+    no_grad_inputs(kernel.name, x, w, b, eff, skip)
     if x.device.type == "cpu":
         return conv_in_plain(x, w, b, stride=stride, pad=pad, eff=eff, relu=relu,
                              skip=skip, emit_input=emit_input)

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import Kernel
+from ._build import Kernel, no_grad_inputs
 from ._conv_in import CONV3X3_ENTRIES, conv_route, launch_3x3, rounded_bias
 
 KERNEL = Kernel("conv3x3", "fast_artistic_videos_tpu_torch/csrc/conv3x3_f32.cu",
@@ -45,6 +45,7 @@ def conv3x3_plain(x, w, b, relu: bool = False, pad: int = 1):
 
 
 def _launch(x, w, b, relu: bool, pad: int):
+    no_grad_inputs("conv3x3", x, w, b)
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, relu, pad)
     if x.device.type != "cuda":

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..video import vr_geometry as vr
-from ._build import Kernel, ptr
+from ._build import Kernel, no_grad_inputs, ptr
 
 KERNEL = Kernel("strip_warp", "fast_artistic_videos_tpu_torch/csrc/strip_warp.cu",
                 "fast_artistic_videos_tpu/ops/warp_pallas.py:142")
@@ -90,6 +90,7 @@ class StripWarp:
             return got
 
     def __call__(self, img):
+        no_grad_inputs("strip_warp", img)
         if img.device.type == "cpu":
             return self.plain(img)
         if img.device.type != "cuda":
@@ -265,6 +266,7 @@ class StripSet(BorderSums):
 
     def prior(self, pos: int, segments, div):
         """Position `pos`'s border prior, float32 (H, W, 3)."""
+        no_grad_inputs("strip_warp_sum", div, *segments)
         if div.device.type == "cpu":
             return self.prior_plain(pos, segments, div)
         mode = 1 if pos in PRIOR_DIVIDES else 0
@@ -273,6 +275,7 @@ class StripSet(BorderSums):
     def blend(self, segments, gm, div):
         """The six blended faces, float32 (H, W, 3) each (views of one
         (6, H, W, 3) tensor on a card)."""
+        no_grad_inputs("strip_warp_sum", gm, div, *segments)
         if div.device.type == "cpu":
             return self.blend_plain(segments, gm, div)
         return list(self._launch(BLEND_TERMS, segments, div, gm, 2).unbind(0))

@@ -9,6 +9,8 @@ images, flow (..., H, W, 2) with channel 0 = dx, 1 = dy.
 ``band=None`` is the exact gather (``_warp_single``); an integer band takes
 the banded two-pass form (``_warp_banded_single``, kernel K1 on CUDA), which
 is exact where dy is locally constant and reads zero beyond the band.
+K1 has no backward: a caller that differentiates through the banded form
+asks for its plain PyTorch version with ``differentiable=True``.
 """
 
 from __future__ import annotations
@@ -50,19 +52,25 @@ def _warp_single(img, flow):
     return out.to(img.dtype)
 
 
-def _warp_banded_single(img, flow, band: int):
+def _warp_banded_single(img, flow, band: int, differentiable: bool = False):
     """Banded warp of img (N, H, W, C) by flow (N, H, W, 2): kernel K1 on a
-    CUDA tensor, its plain version on a CPU tensor."""
+    CUDA tensor, its plain version on a CPU tensor or with differentiable
+    (autograd through torch ops, on any device)."""
+    if differentiable:
+        return warp_kernel.warp_banded_plain(img, flow, band)
     return warp_kernel.warp_banded(img.contiguous(), flow.float().contiguous(), band)
 
 
-def bilinear_warp(img, flow, band: int | None = None):
+def bilinear_warp(img, flow, band: int | None = None, differentiable: bool = False):
     """Warp ``img`` by absolute-offset ``flow`` with zero out-of-bounds taps.
 
     img:  (H, W, C) or (N, H, W, C)
     flow: (H, W, 2) or (N, H, W, 2), channels (dx, dy)
     band: bound on |flow| selecting the banded path (kernel K1 on CUDA);
           None uses the exact gather.
+    differentiable: with a band, the banded form's plain PyTorch version on
+          every device (the flow estimator's training pass; K1 has no
+          backward). The exact gather is differentiable as it is.
     """
     if img.ndim not in (3, 4):
         raise ValueError(f"img must be HWC or NHWC, got shape {tuple(img.shape)}")
@@ -71,7 +79,8 @@ def bilinear_warp(img, flow, band: int | None = None):
     f = flow[None] if flow.ndim == 3 else flow
     if f.shape[0] != x.shape[0]:
         f = f.expand(x.shape[0], *f.shape[1:])
-    out = _warp_single(x, f) if band is None else _warp_banded_single(x, f, band)
+    out = (_warp_single(x, f) if band is None
+           else _warp_banded_single(x, f, band, differentiable))
     return out[0] if single else out
 
 

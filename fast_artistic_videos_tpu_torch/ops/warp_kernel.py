@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import Kernel, ptr
+from ._build import Kernel, no_grad_inputs, ptr
 
 KERNEL = Kernel("warp_banded", "fast_artistic_videos_tpu_torch/csrc/warp_banded.cu",
                 "fast_artistic_videos_tpu/ops/warp_pallas.py:32")
@@ -80,7 +80,9 @@ def warp_route(c: int, dtype, aligned: bool = True):
 def warp_banded(img, flow, band: int):
     """K1. img (N, H, W, C) float32 or bfloat16; flow (N, H, W, 2) float32
     (dx, dy). A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel on the entry :func:`warp_route` names, or raises."""
+    kernel on the entry :func:`warp_route` names, or raises. Raises on any
+    device when asked to carry a gradient (``_build.no_grad_inputs``)."""
+    no_grad_inputs("warp_banded", img, flow)
     if img.device.type == "cpu":
         return warp_banded_plain(img, flow, band)
     if img.device.type != "cuda" or flow.device != img.device:

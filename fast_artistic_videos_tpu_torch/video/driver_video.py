@@ -54,11 +54,17 @@ def resize_bicubic(arr, scale: float):
     (a = -0.5) widened by 1/s when shrinking, with weights renormalized at
     the borders, which is torch's antialiased bicubic."""
     h, w = arr.shape[0], arr.shape[1]
-    nh, nw = int(round(h * scale)), int(round(w * scale))
-    x = arr.float().permute(2, 0, 1)[None]
-    y = F.interpolate(x, size=(nh, nw), mode="bicubic", align_corners=False,
-                      antialias=True)
-    return y[0].permute(1, 2, 0)
+    return resize_bicubic_to(arr, (int(round(h * scale)), int(round(w * scale))))
+
+
+def resize_bicubic_to(arr, size):
+    """:func:`resize_bicubic` to size (h, w): (H, W, C) or (N, H, W, C)
+    tensor -> (..., h, w, C) float32."""
+    x = arr.float()
+    x = (x[None] if x.ndim == 3 else x).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=tuple(size), mode="bicubic", align_corners=False,
+                      antialias=True).permute(0, 2, 3, 1)
+    return y[0] if arr.ndim == 3 else y
 
 
 @dataclasses.dataclass

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 banded warp, K2 chain conv, K3 front conv,
 K4 block conv, K5 strip warp) against their plain PyTorch versions on a
-card, and the stylizer's kernel paths (batch 1: K3 + K2; batch > 1: K4)
-against its plain (cuDNN) path. Needs a CUDA card: every test skips
+card, the stylizer's kernel paths (batch 1: K3 + K2; batch > 1: K4)
+against its plain (cuDNN) path, and the trainer's float32 step and
+optimizer updates as the kernels see them. Needs a CUDA card: every test skips
 without one. This file imports no jax, so on the card host it runs alone:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -15,12 +16,15 @@ import pytest
 import torch
 
 from fast_artistic_videos_tpu_torch.core import device as device_mod
+from fast_artistic_videos_tpu_torch.core.config import TrainOptions
 from fast_artistic_videos_tpu_torch.flow import estimator
-from fast_artistic_videos_tpu_torch.models import arch_dsl, checkpoint, stylizer, vgg
+from fast_artistic_videos_tpu_torch.models import arch_dsl, checkpoint, registry, stylizer, vgg
 from fast_artistic_videos_tpu_torch.ops import gram
 from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel, front_kernel, rblock_kernel
 from fast_artistic_videos_tpu_torch.ops import warp_kernel
 from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
+from fast_artistic_videos_tpu_torch.train import data as tdata
+from fast_artistic_videos_tpu_torch.train.trainer import Trainer, leaves
 from fast_artistic_videos_tpu_torch.video import driver_vr
 from fast_artistic_videos_tpu_torch.video import vr_geometry as vr
 
@@ -729,3 +733,101 @@ def test_float32_vgg_ignores_the_tf32_flags(both_tf32_flags_on, monkeypatch):
     monkeypatch.setattr(device_mod, "float32_convs", contextlib.nullcontext)
     tf32 = vgg.extract_features(params, _t(x, cuda), taps)
     assert max(_rel(tf32[t], want[t]) for t in taps) > F32_VS_F64
+
+
+# ---------------------------------------------------------------------------
+# training: the float32 step's scope, and the kernels after an optimizer step
+# ---------------------------------------------------------------------------
+
+def _train_step_grads(device, dtype=torch.float32, params=None, vgg_params=None):
+    """One step of the port's style trainer (canonical architecture, 64x64,
+    batch 2, the candy fixture, a shift batch from a numpy seed) at lr 0:
+    (params, vgg params, {leaf index: gradient}). On the card the frame-1
+    pass runs through K4 (forward only) and the gradient pass through
+    cuDNN; in float64 (the CPU reference) every pass is the plain path."""
+    opt = TrainOptions(train_img_size="64:64", batch_size=2, data_mix="shift:1",
+                       style_image=registry.style_fixture("candy"), style_image_size=64)
+    tr = Trainer(opt, vgg_params=vgg_params, device=device)
+    if params is not None:
+        with torch.no_grad():
+            for d, s in zip(leaves(tr.params), leaves(params)):
+                d.data = s.to(device, dtype).clone()
+        tr.optimizer = tr._make_optimizer()
+        tr.style_tgts = [t.to(dtype) for t in tr.style_tgts]
+        tr._dtype = dtype
+    rng = np.random.default_rng(13)
+    imgs, flows, certs = tdata.shift_batch(rng.random((2, 64, 64, 3)), 1, rng)
+
+    def put(arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+                     for a in arrays)
+    tr._train_step(put(imgs), put(flows), put(certs), 1, "self", 0.0)
+    return tr.params, tr.vgg_params, [t.grad for t in leaves(tr.params)]
+
+
+def test_float32_train_step_ignores_the_tf32_flags(both_tf32_flags_on, monkeypatch):
+    """One float32 training step on the card (forward-only frame 1 through
+    K4, the gradient pass, the backward of the stylizer, VGG-16 and the Gram
+    products, all inside core.device.float32_convs) with both TF32 flags on
+    outside the scope, cuDNN deterministic: every leaf's gradient equal
+    (1e-6 relative L2) to the same step with both flags off, and within
+    1e-2 of the step with float64 parameters, inputs and stylizer on the
+    CPU (the trainer rounds the stylizer's output to float32 before the
+    loss network, as the JAX trainer does; the one-pass instance-norm
+    variance, E[x^2] - E[x]^2, amplifies float32 rounding in the backward:
+    2e-3 on the CPU); the conv biases that instance norm cancels (exact
+    gradient 0) stay below 1e-6 of the largest norm. The flags are left as
+    they were. Without the scope the step misses the flags-off step by
+    more than 1e-4."""
+    cuda = both_tf32_flags_on
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    params, vgg_params, got = _train_step_grads(cuda)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    vgg64 = _tree(vgg_params, lambda t: t.cpu().double())
+    _, _, want64 = _train_step_grads("cpu", torch.float64, params, vgg64)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, off = _train_step_grads(cuda, params=params, vgg_params=vgg_params)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    top = max(w.norm() for w in want64)
+
+    def worst(grads, want):
+        out = 0.0
+        for g, w, r in zip(grads, want, want64):
+            if r.norm() < 1e-6 * top:
+                assert g.norm() < 1e-6 * max(x.norm() for x in grads)
+                continue
+            out = max(out, _rel(g, w.double().cpu()))
+        return out
+    monkeypatch.setattr(device_mod, "float32_convs", contextlib.nullcontext)
+    _, _, tf32 = _train_step_grads(cuda, params=params, vgg_params=vgg_params)
+    figures = (worst(got, off), worst(got, want64), worst(tf32, off))
+    assert figures[0] <= 1e-6 and figures[1] <= 1e-2 and figures[2] > 1e-4, figures
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)])
+def test_kernel_route_sees_the_weights_after_an_optimizer_step(cuda, dtype, tol):
+    """The kernels' packed weights are cached on the tensor by its version
+    (ops/_conv_in._packed): torch.optim's in-place update must bump every
+    leaf's version, so the next forward-only pass (K4 at batch 2) computes
+    with the new weights: it moves, and matches the cuDNN path on them
+    (max-abs / 255)."""
+    spec = arch_dsl.parse_arch("c9s1-32,d64,d128,R128,R128,u64,u32,c9s1-3")
+    params = stylizer.init_params(torch.Generator(device=cuda).manual_seed(5), spec, cuda)
+    tensors = leaves(params)
+    for t in tensors:
+        t.requires_grad_(True)
+    x = _t(np.random.default_rng(14).standard_normal((2, 64, 72, 7)) * 60, cuda)
+    k4 = conv_kernel.KERNEL
+    with torch.no_grad():
+        before = k4.launches
+        y0 = stylizer.apply(params, spec, x, dtype=dtype)
+        assert k4.launches == before + 4
+    versions = [t._version for t in tensors]
+    stylizer.apply(params, spec, x, dtype=dtype, fused=False).float().square().mean().backward()
+    torch.optim.Adam(tensors, lr=1e-2).step()
+    assert all(t._version > v for t, v in zip(tensors, versions))
+    with torch.no_grad():
+        y1 = stylizer.apply(params, spec, x, dtype=dtype)
+        want = stylizer.apply(params, spec, x, dtype=dtype, fused=False)
+    assert (y1.float() - y0.float()).abs().max().item() / 255.0 > 10 * tol
+    assert (y1.float() - want.float()).abs().max().item() / 255.0 <= tol

@@ -11,6 +11,20 @@ synthetic pans and the JAX package's CLI outputs for them.
     4-frame 84x112 pan (at least 41 px per side after --scale_factor 0.5):
     --create_inconsistent --inconsistent_batch 2, --feature_reuse 3,
     --scale_factor 0.5 and --phase_resident (BATCH_CASES);
+  * tests/fixtures/torch_parity_train.npz: the JAX style trainer on the
+    CPU (write_train): the canonical architecture at full width, 64x64
+    images, batch 2, 3 iterations of shift:1,zoom_out:1, from parameters
+    drawn by chip_smoke.py's seeded_params (a numpy law, so the port
+    starts from the same ones), the EVAL_VGG_SEED VGG-16 and the bundled
+    candy style image at 64 px; seeded uint8 images through chip_smoke.py's
+    in-memory source (ArraySource), with its PARITY_* seeds and options.
+    Stored: the per-iteration losses, the first
+    iteration's per-leaf gradient L2 norms and the final parameters'
+    per-leaf sums and absolute sums;
+  * tests/fixtures/torch_parity_flow_eval.npz: the JAX
+    flow.train.evaluate_heldout on the bundled flow weights at 192 px
+    (write_flow_eval): per protocol (EPE mean, EPE max, pass-rate mean,
+    pass-rate min);
   * tests/fixtures/torch_parity_eval.npz: the JAX evaluators' rows
     (VideoEvaluator, VREvaluator) on the content frames and stylized
     outputs stored in the demo and VR fixtures, with ground-truth pan flow
@@ -37,6 +51,8 @@ OUT = os.path.join(ROOT, "tests", "fixtures", "torch_parity_demo.npz")
 OUT_VR = os.path.join(ROOT, "tests", "fixtures", "torch_parity_vr.npz")
 OUT_BATCH = os.path.join(ROOT, "tests", "fixtures", "torch_parity_batch.npz")
 OUT_EVAL = os.path.join(ROOT, "tests", "fixtures", "torch_parity_eval.npz")
+OUT_TRAIN = os.path.join(ROOT, "tests", "fixtures", "torch_parity_train.npz")
+OUT_FLOW_EVAL = os.path.join(ROOT, "tests", "fixtures", "torch_parity_flow_eval.npz")
 
 SEED = 20261016
 FRAMES, H, W = 5, 96, 128
@@ -236,6 +252,66 @@ def jax_eval_rows(demo: dict, vr_fx: dict, workdir: str, vgg_path: str):
     return np.asarray(rows_2d, np.float64), np.asarray(rows_vr, np.float64)
 
 
+FLOW_EVAL_SIZE, FLOW_EVAL_CASES = 192, 2
+
+
+def _chip_smoke():
+    """chip_smoke.py, which holds the trainer fixture's seeds, sizes and
+    options (PARITY_*), its in-memory image source (ArraySource), its
+    seeded images and parameter law (seeded_images, seeded_params) and
+    flat_tree: phase 15 runs the port's side from the same code."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_train_run(vgg_path: str):
+    """The JAX trainer's run of write_train: (losses, {key: first-iteration
+    gradient L2 norm}, {key: final parameters})."""
+    import copy
+
+    import jax
+    import jax.numpy as jnp
+    from fast_artistic_videos_tpu.core.config import TrainOptions, schedule_value
+    from fast_artistic_videos_tpu.models import registry
+    from fast_artistic_videos_tpu.parallel import mesh as pmesh
+    from fast_artistic_videos_tpu.train.trainer import Trainer
+    from fast_artistic_videos_tpu.video.evaluation import load_vgg_params
+
+    sm = _chip_smoke()
+    flat_tree = sm.flat_tree
+    opt = TrainOptions(style_image=registry.style_fixture("candy"), **sm.PARITY_OPTS)
+    tr = Trainer(opt, vgg_params=load_vgg_params(vgg_path))
+    tr.image_source = sm.ArraySource(sm.seeded_images(sm.PARITY_IMAGE_SEED, sm.PARITY_IMAGES,
+                                                      sm.PARITY_HW), sm.PARITY_BATCH)
+    shapes = {k: v.shape for k, v in flat_tree(jax.tree_util.tree_map(np.asarray,
+                                                                      tr.params)).items()}
+    params = jax.tree_util.tree_map(jnp.asarray,
+                                    sm.seeded_params(sm.PARITY_PARAM_SEED, shapes))
+    tr.params = jax.device_put(params, pmesh.replicated(tr.mesh))
+    tr.opt_state = jax.device_put(tr.tx.init(tr.params), pmesh.replicated(tr.mesh))
+    # the first iteration's gradient, from the batch the run draws first
+    state = copy.deepcopy(tr.data_rng.bit_generator.state)
+    cursor = dict(tr.image_source.cursor)
+    source = tr._next_source()
+    imgs, flows, certs, steps = tr._get_batch(
+        "train", source, int(schedule_value(tr.frame_steps_sched, 1)))
+    grads = jax.jit(jax.grad(lambda p: tr._loss_fn(
+        p, imgs, flows, certs, jax.random.PRNGKey(0), steps, tr._first_mode(source))[0]))(
+            tr.params)
+    tr.data_rng.bit_generator.state = state
+    tr.image_source.cursor = cursor
+    tr.train(log_fn=lambda *a: None)
+    norms = {k: float(np.linalg.norm(v)) for k, v in
+             flat_tree(jax.tree_util.tree_map(np.asarray, grads)).items()}
+    return (np.asarray(tr.train_loss_history, np.float64), norms,
+            flat_tree(jax.tree_util.tree_map(np.asarray, tr.params)))
+
+
 def load(path: str) -> dict:
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
@@ -250,6 +326,32 @@ def write_eval():
                         style_image_size=np.int64(EVAL_STYLE_SIZE),
                         rows_2d=rows_2d, rows_vr=rows_vr)
     print(f"wrote {OUT_EVAL} ({os.path.getsize(OUT_EVAL)} bytes)")
+
+
+def write_train():
+    with tempfile.TemporaryDirectory() as d:
+        losses, norms, final = jax_train_run(vgg_npz(EVAL_VGG_SEED, os.path.join(d, "vgg16.npz")))
+    out = {f"grad_norm/{k}": np.float64(v) for k, v in norms.items()}
+    out.update({f"param_sum/{k}": np.float64(v.astype(np.float64).sum())
+                for k, v in final.items()})
+    out.update({f"param_abs/{k}": np.float64(np.abs(v.astype(np.float64)).sum())
+                for k, v in final.items()})
+    sm = _chip_smoke()
+    np.savez_compressed(OUT_TRAIN, vgg_seed=np.int64(EVAL_VGG_SEED),
+                        param_seed=np.int64(sm.PARITY_PARAM_SEED),
+                        image_seed=np.int64(sm.PARITY_IMAGE_SEED), losses=losses, **out)
+    print(f"wrote {OUT_TRAIN} ({os.path.getsize(OUT_TRAIN)} bytes)")
+
+
+def write_flow_eval():
+    from fast_artistic_videos_tpu.flow import estimator, train as flow_train
+
+    res = flow_train.evaluate_heldout(estimator.load_params("bundled"), size=FLOW_EVAL_SIZE,
+                                      n_cases=FLOW_EVAL_CASES)
+    np.savez_compressed(OUT_FLOW_EVAL, size=np.int64(FLOW_EVAL_SIZE),
+                        n_cases=np.int64(FLOW_EVAL_CASES), protocols=np.asarray(list(res)),
+                        results=np.asarray([res[k] for k in res], np.float64))
+    print(f"wrote {OUT_FLOW_EVAL} ({os.path.getsize(OUT_FLOW_EVAL)} bytes)")
 
 
 def write_demo():
@@ -290,6 +392,8 @@ def main():
     write_vr()
     write_batch()
     write_eval()
+    write_train()
+    write_flow_eval()
     return 0
 
 
