@@ -105,9 +105,11 @@ Phases (any failure exits non-zero, before the result line is printed):
      10 beside the uninterrupted run (RESUME_LIMITS: losses rtol 5e-5
      float32, 5e-4 bfloat16, each parameter leaf within a share of its
      update since the checkpoint, the cancelled biases within Adam's 2 lr
-     a step: cuDNN's backward algorithms need not be deterministic), and
-     two planted faults (Adam afresh, the data generator from its seed)
-     must miss those limits; the iteration time (CUDA events,
+     a step: cuDNN's and cuBLAS's default algorithms need not be
+     deterministic), and two planted faults (Adam afresh, the data
+     generator from its seed) must miss those limits; then the same resume
+     under torch.use_deterministic_algorithms(True) must be bit-identical
+     (deterministic_resume); the iteration time (CUDA events,
      median of the last 5) split into forward-only passes, gradient pass
      and optimizer, images per second, peak memory and the bound from the
      operations FlopCounterMode counts. Where h5py is installed, 2
@@ -125,6 +127,21 @@ Phases (any failure exits non-zero, before the result line is printed):
      phase 16 phase 3 holds K4 against its plain version at each of them
      on the inputs of its first launch (relative L2 1e-4 float32, 1e-2
      bfloat16).
+ 17-20. several cards, at each of 1, 2 and 4 cards the machine has (the
+     others are printed as not run): 17. the serving pool
+     (video/serving.py) over c cards, 2 streams a card of the 1080p pan,
+     float32 then bfloat16, one host thread, and one thread per card at the
+     largest count (run_serving: launches, placement, each stream against
+     its solo run, frames/s and each card's busy share); 18. data-parallel training at
+     world 1, 2 and 4, one NCCL process a card (two gloo ranks on card 0 on
+     a one-card machine: the contract only), float32 then bfloat16
+     (run_data_parallel: gradients against world 1, bit-identical resume,
+     equal ranks, the restore onto world 1, images/s and scaling); 19. the
+     1080p frame height-sharded over 2 and 4 cards (2 shards on card 0 on
+     one card) against the unsharded forward, and a 4K forward on one card
+     (run_spatial); 20. dryrun_multichip on every card. With the single
+     argument --cards-only the script runs phases 1-2 and 17-20 alone and
+     prints no result line.
 
 The last lines of standard output are the card's name and power limit, a
 JSON line with one row per kernel (name, route, source, the TPU kernel it
@@ -2236,9 +2253,11 @@ def _param_copy(trainer):
 
 
 # phase 14's resume check. A trainer restored from the iteration-5
-# checkpoint runs on to 10 beside the uninterrupted one; it need not match
-# bit for bit on the card (cuDNN's backward algorithms and K4's
-# forward-only launches need not be deterministic), so it is held to
+# checkpoint runs on to 10 beside the uninterrupted one. By default it
+# need not match bit for bit on the card: cuDNN's and cuBLAS's default
+# algorithms need not be deterministic (under
+# torch.use_deterministic_algorithms the same resume is bit-identical in
+# both dtypes, and deterministic_resume holds it so), so it is held to
 # limits: the losses of iterations 6-10 relative to the uninterrupted
 # run's, and each parameter leaf's distance from the uninterrupted run's,
 # relative L2 to that run's update of the leaf since the checkpoint. The
@@ -2318,6 +2337,33 @@ def resume_misses(gap, dname):
     lim = RESUME_LIMITS[dname]
     out = [k for k in ("loss", "leaf") if not gap[k] <= lim[k]]
     return out + ([] if gap["cancelled_abs"] <= RESUME_CANCELLED_ABS else ["cancelled_abs"])
+
+
+def deterministic_resume(torch, opt, make, dname):
+    """Phase 14's resume under torch.use_deterministic_algorithms(True)
+    (cuBLAS workspace ":4096:8", set at the script's start): a fresh
+    uninterrupted run of `make()` and a trainer restored from its
+    iteration-5 checkpoint end bit for bit equal, every loss and every
+    parameter. The mode is put back to the default after."""
+    half = TRAIN_ITERS // 2
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = make()
+        a.train(half, log_fn=lambda *x: None)
+        r = make()
+        r.restore_train_state(opt.checkpoint_name + "_state")
+        for tr in (a, r):
+            tr.train(TRAIN_ITERS, log_fn=lambda *x: None)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = [bool(torch.equal(x, y)) for x, y in zip(_param_copy(a), _param_copy(r))]
+    log(f"training {dname} resume under deterministic algorithms: iterations "
+        f"{half + 1}-{TRAIN_ITERS} losses equal {a.train_loss_history == r.train_loss_history}, "
+        f"{sum(same)} of {len(same)} parameter leaves bit-identical")
+    if not all(same) or a.train_loss_history != r.train_loss_history:
+        raise AssertionError(f"training {dname}: the deterministic resume is not "
+                             f"bit-identical ({same.count(False)} leaves differ)")
 
 
 def run_training(torch, workdir, smi):
@@ -2421,6 +2467,7 @@ def run_training(torch, workdir, smi):
                                      f"{gap}, missed {misses}")
             gaps[fault] = gap
         del restored
+        deterministic_resume(torch, opt, trainer, dname)
         t = probe.times(half)
         bound_ms, sty_gflop, vgg_gflop = train_bound(torch, a, probe, half, dname)
         t.update(bound_ms=bound_ms, stylizer_gflop=sty_gflop, loss_network_gflop=vgg_gflop,
@@ -2569,6 +2616,580 @@ def run_flow_training(torch, k1, smi):
             "pass_abs": float(pass_abs.max())}
 
 
+# ---------------------------------------------------------------------------
+# phases 17-20: several cards
+# ---------------------------------------------------------------------------
+
+CARD_COUNTS = (1, 2, 4)
+# cut to fit the script's time: 6 frames a stream (from 12; on four cards
+# one thread per card runs at 4-7 frames/s in all), the thread-per-card
+# form at the largest card count only, and 6 training iterations with the
+# checkpoint at 3 (phase 14: 10 and 5)
+SERVE_FRAMES, SERVE_SEED, SERVE_PROFILED = 6, 20261101, 2
+DP_IMAGES, DP_SEED, DP_ITERS = 64, 20261102, 6
+SPATIAL_SHARDS, SPATIAL_REPS, SIZE_4K = (2, 4), 5, (2160, 3840)
+# a bfloat16 served stream against its solo run: two bfloat16 steps of an
+# output in [0.5, 1] (see run_serving)
+SERVE_BF16_MAX_ABS = 2 * 2.0 ** -8
+
+
+def card_counts(torch):
+    """(card counts of CARD_COUNTS this machine has, those it has not)."""
+    n = torch.cuda.device_count()
+    return [c for c in CARD_COUNTS if c <= n], [c for c in CARD_COUNTS if c > n]
+
+
+def _sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _busy_by_card(torch, prof, wall_ms, cards):
+    """Each card's busy share of a profiled window: the union of its
+    kernels' device intervals (torch.profiler) over the window's wall
+    time. Raises when the profiler recorded no kernel."""
+    spans = {c: [] for c in range(cards)}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_index in spans:
+            spans[ev.device_index].append((ev.time_range.start, ev.time_range.end))
+    if not any(spans.values()):
+        raise AssertionError("torch.profiler recorded no kernel on the cards")
+    out = {}
+    for c, iv in spans.items():
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted(iv):
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        out[c] = busy / 1e3 / wall_ms
+    return out
+
+
+def _solo_streams(torch, spec, params, fparams, clips, devs, dname):
+    """Each stream alone through an engine and a streaming provider of its
+    own on devs[s % len(devs)]: {stream: [stylized frames]}."""
+    from fast_artistic_videos_tpu_torch.flow import estimator
+    from fast_artistic_videos_tpu_torch.flow.provider import StreamingFlowProvider
+    from fast_artistic_videos_tpu_torch.models import stylizer
+    from fast_artistic_videos_tpu_torch.video.engine import EngineConfig, StylizerEngine
+
+    out = {}
+    for s, clip in enumerate(clips):
+        dev = devs[s % len(devs)]
+        eng = StylizerEngine(lambda p, x: stylizer.apply(p, spec, x),
+                             stylizer.to_device(params, dev), stride_multiple=spec.total_stride,
+                             config=EngineConfig(dtype=dname), device=dev)
+        prov = StreamingFlowProvider(flow_estimator=estimator.FlowEstimator(
+            stylizer.to_device(fparams, dev),
+            dtype=torch.bfloat16 if dname == "bfloat16" else torch.float32, device=dev),
+            flow_scale=0.5)
+        prev, out[s] = None, []
+        for f in clip:
+            frame = torch.from_numpy(f).to(dev)
+            fc = prov(frame)
+            prev = (eng.stylize_first(frame) if fc is None else
+                    eng.stylize_next(frame, prev, fc[0], fc[1], prov.last_band))
+            out[s].append(prev)
+    return out
+
+
+def run_serving(torch, counts, smi):
+    """Phase 17: StreamPool (video/serving.py) of the demo model with the
+    bundled flow estimator at flow scale 0.5 over the first c cards, for
+    every c of `counts`: 2c streams of the 1080p pan from distinct seeds,
+    SERVE_FRAMES frames each, float32 then bfloat16, driven by one host
+    thread and, at the largest c, by one thread per card too. Checks: K1
+    8 launches per stream-frame pair, K2 10 and K3 3 per stream-frame
+    (phase 4's counts), no K4 or K5; every output on its stream's card;
+    every stream against
+    the same stream alone through an engine and a provider of its own on
+    card s % (largest c): float32 within max abs 1e-3 of the [0, 1]
+    range; bfloat16 within a mean-abs of 1e-3 a frame and a max abs of
+    SERVE_BF16_MAX_ABS, printed beside the max abs between two solo runs
+    of streams 0 and 1 (K2's and K3's statistics are float32 atomics, so
+    two bfloat16 runs of one stream need not agree bit for bit: they
+    differ by bfloat16 steps of the output, 2^-8 in [0.5, 1]; the pool
+    and two solo runs differed by at most 2 steps in every run of this
+    phase on H100 80GB HBM3 cards at 700 W). Times:
+    streams x frames over the wall time (host clock, every card
+    synchronized; no PNG), and each card's busy share in a profiled window
+    of SERVE_PROFILED frames a stream. Returns {dtype: {c: figures}}."""
+    import threading
+
+    from fast_artistic_videos_tpu_torch.flow import estimator
+    from fast_artistic_videos_tpu_torch.models import checkpoint
+    from fast_artistic_videos_tpu_torch.video.serving import StreamPool
+
+    kernels = _kernels()
+    spec, params, _ = checkpoint.load_model("demo", "cuda:0")
+    fparams = estimator.load_params("bundled", "cuda:0")
+    frames, top = SERVE_FRAMES, max(counts)
+    clips = [pan_frames(SERVE_SEED + s, frames, *SIZE_1080, PAN_1080) for s in range(2 * top)]
+    want = {"warp_banded": 8 * (frames - 1), "res_chain_conv": 10 * frames,
+            "front_conv": 3 * frames, "conv3x3": 0, "strip_warp": 0}
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        top_devs = [torch.device("cuda", i) for i in range(top)]
+        solo = _solo_streams(torch, spec, params, fparams, clips, top_devs, dname)
+        spread = None
+        if dname == "bfloat16":
+            again = _solo_streams(torch, spec, params, fparams, clips[:2], top_devs, dname)
+            spread = max((o - solo[s][t]).abs().max().item()
+                         for s in again for t, o in enumerate(again[s]))
+            del again
+        out[dname] = {}
+        for c in counts:
+            n = 2 * c
+            devs = [torch.device("cuda", i) for i in range(c)]
+            pool = StreamPool(spec, params, flow_params=fparams, n_streams=n, devices=devs,
+                              dtype=dname, flow_scale=0.5)
+
+            def one_thread(count, rec):
+                for t in range(count):
+                    for s in range(n):
+                        rec[s].append(pool.process(s, clips[s][t]))
+
+            def per_card(count, rec):
+                errors = []
+
+                def body(card):
+                    try:
+                        for t in range(count):
+                            for s in range(card, n, c):
+                                rec[s].append(pool.process(s, clips[s][t]))
+                    except BaseException as e:  # noqa: BLE001 - re-raised below
+                        errors.append(e)
+                threads = [threading.Thread(target=body, args=(k,)) for k in range(c)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                if errors:
+                    raise errors[0]
+
+            def restart():
+                for s in range(n):
+                    pool.reset(s)
+            one_thread(2, {s: [] for s in range(n)})        # warm-up
+            restart()
+            _sync_all(torch)
+            fig = {}
+            forms = [("one thread", one_thread)] + (
+                [("thread per card", per_card)] if c == top else [])
+            for form, drive in forms:
+                rec = {s: [] for s in range(n)}
+                _reset(kernels)
+                t0 = time.monotonic()
+                drive(frames, rec)
+                _sync_all(torch)
+                wall = time.monotonic() - t0
+                got = {name: k.launches for name, k in kernels.items()}
+                if got != {k: v * n for k, v in want.items()}:
+                    raise AssertionError(f"serving {dname} {c} cards ({form}): launches {got}, "
+                                         f"want {n} x {want}")
+                placed = all(o.device == devs[s % c] for s in rec for o in rec[s])
+                diffs = [(o - solo[s][t].to(o.device)).abs()
+                         for s in rec for t, o in enumerate(rec[s])]
+                err = max(d.max().item() for d in diffs)
+                mean = max(d.mean().item() for d in diffs)
+                within = (err <= 1e-3 if dname == "float32" else
+                          mean <= 1e-3 and err <= SERVE_BF16_MAX_ABS)
+                limits = ("max 1e-3" if dname == "float32" else
+                          f"mean 1e-3, max {SERVE_BF16_MAX_ABS:g}")
+                if not placed or not within:
+                    raise AssertionError(f"serving {dname} {c} cards ({form}): placed {placed}, "
+                                         f"vs the solo streams max abs {err}, largest "
+                                         f"mean-abs of a frame {mean}")
+                del diffs
+                del rec
+                restart()
+                _sync_all(torch)
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                            acc_events=True) as prof:
+                    t1 = time.monotonic()
+                    drive(SERVE_PROFILED, {s: [] for s in range(n)})
+                    _sync_all(torch)
+                    wall_p = (time.monotonic() - t1) * 1e3
+                restart()
+                busy = _busy_by_card(torch, prof, wall_p, c)
+                fig[form] = {"fps": n * frames / wall, "stream_fps": frames / wall,
+                             "busy": [round(busy[k], 3) for k in range(c)], "max_abs": err,
+                             "mean_abs": mean, "solo_spread": spread}
+                log(f"serving {dname} 1080p, {c} card(s), {n} streams x {frames} frames, {form}: "
+                    f"{fig[form]['fps']:.3f} frames/s in all ({fig[form]['stream_fps']:.3f} a "
+                    f"stream, no PNG, host clock), busy share by card {fig[form]['busy']} "
+                    f"(torch.profiler, {SERVE_PROFILED} frames a stream); launches {got}; every "
+                    f"output on its stream's card; vs the solo streams max abs {err:.3g}, "
+                    f"largest mean-abs of a frame {mean:.3g} (limits: {limits})"
+                    + ("" if spread is None else
+                       f"; two solo runs of streams 0-1 differ by max abs {spread:.3g}")
+                    + f"; {smi}")
+            fig["launches"] = got
+            out[dname][c] = fig
+            del pool
+        del solo
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_batch(global_n):
+    """The fixed global batch of phase 18's gradient check: a shift-source
+    batch (one step) of the first global_n images of DP_SEED, drawn from
+    numpy generators of DP_SEED; the same on every rank."""
+    import numpy as np
+    from fast_artistic_videos_tpu_torch.train import data as data_mod
+
+    images = seeded_images(DP_SEED, global_n, TRAIN_SIZE)["train"].astype(np.float32) / 255.0
+    return data_mod.shift_batch(images, 1, np.random.default_rng(DP_SEED))
+
+
+def dp_grads(torch, trainer, global_n, rows=None):
+    """The gradient of the trainer's loss (frame 1 by the model, one
+    step) on this rank's rows of dp_batch(global_n) (or on `rows`, a
+    slice, in a world of one), averaged over the ranks: (mean loss over
+    the ranks, flat float32 numpy gradient). The trainer's gradients are
+    cleared after."""
+    from fast_artistic_videos_tpu_torch.core import device as device_mod
+    from fast_artistic_videos_tpu_torch.parallel import mesh
+    from fast_artistic_videos_tpu_torch.train.trainer import leaves
+
+    imgs, flows, certs = (trainer._to_device(*(mesh.local_rows(part) if rows is None
+                                               else [a[rows] for a in part]))
+                          for part in dp_batch(global_n))
+    with device_mod.float32_convs():
+        loss, _ = trainer._loss_fn(trainer.params, imgs, flows, certs, 1, "self")
+        trainer._backward(loss)
+    mesh.all_reduce_grads(leaves(trainer.params))
+    flat = torch.cat([t.grad.reshape(-1) for t in leaves(trainer.params)]).float().cpu().numpy()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return float(mesh.mean_over_ranks(loss.detach())), flat
+
+
+def dp_train(workdir, device):
+    """Phase 18's run of one rank (or of one process without a group):
+    the phase-14 trainer with TRAIN_BATCH images a rank from its shard of
+    DP_IMAGES seeded images, float32 then bfloat16. Under deterministic
+    algorithms: the gradient on dp_batch(world x TRAIN_BATCH), DP_ITERS
+    iterations with a checkpoint at half (CUDA-event times by TrainProbe),
+    a trainer restored from that checkpoint run on beside it (bit-identical
+    parameters and losses), and every rank's parameters against rank 0's.
+    Returns {dtype: figures}; the gradient on rank 0 only."""
+    import torch
+
+    from fast_artistic_videos_tpu_torch.core.config import TrainOptions
+    from fast_artistic_videos_tpu_torch.models import registry
+    from fast_artistic_videos_tpu_torch.parallel import mesh
+    from fast_artistic_videos_tpu_torch.train.data import shard_range
+    from fast_artistic_videos_tpu_torch.train.trainer import Trainer, leaves
+    from fast_artistic_videos_tpu_torch.video.evaluation import load_vgg_params
+
+    world, rank = mesh.world(), mesh.rank()
+    dev = mesh.rank_device(device)
+    torch.cuda.set_device(dev)
+    kernels = _kernels()
+    vgg_params = load_vgg_params(os.path.join(workdir, "vgg16.npz"), dev)
+    lo, hi = shard_range(DP_IMAGES, world, rank)
+    shard = {k: v[lo:hi] for k, v in seeded_images(DP_SEED, DP_IMAGES, TRAIN_SIZE).items()}
+    half = DP_ITERS // 2
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        opt = TrainOptions(
+            train_img_size=f"{TRAIN_SIZE}:{TRAIN_SIZE}", batch_size=TRAIN_BATCH * world,
+            style_image=registry.style_fixture("candy"), style_image_size=384,
+            data_mix="shift:1,zoom_out:1,vr:1", num_frame_steps=f"0:1,{half - 1}:2",
+            num_iterations=DP_ITERS, checkpoint_every=half, num_val_batches=1,
+            print_every=1, history_every=1, images_every=0, dtype=dname,
+            num_data_devices=world,
+            checkpoint_name=os.path.join(workdir, f"dp{world}_{dname}", "ck"))
+
+        def make():
+            tr = Trainer(opt, vgg_params=vgg_params, device=dev)
+            tr.image_source = ArraySource(shard, TRAIN_BATCH)
+            return tr
+        torch.use_deterministic_algorithms(True)
+        try:
+            a = make()
+            loss, grad = dp_grads(torch, a, TRAIN_BATCH * world)
+            probe = TrainProbe(torch, a, kernels, dname)
+            a.train(half, log_fn=lambda *x: None)
+            r = make()
+            r.restore_train_state(opt.checkpoint_name + "_state")
+            a.train(DP_ITERS, log_fn=lambda *x: None)
+            r.train(DP_ITERS, log_fn=lambda *x: None)
+            torch.cuda.synchronize(dev)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        resumed = (a.train_loss_history == r.train_loss_history
+                   and all(bool(torch.equal(x, y)) for x, y in zip(leaves(a.params),
+                                                                    leaves(r.params))))
+        flat = torch.cat([t.detach().reshape(-1) for t in leaves(a.params)])
+        ref = flat.clone()
+        if world > 1:
+            torch.distributed.broadcast(ref, src=0)
+        ranks_same = float(mesh.mean_over_ranks(torch.tensor(
+            float(torch.equal(flat, ref)), device=dev))) == 1.0
+        t = probe.times(half)
+        out[dname] = {"loss": loss, "grad": grad if rank == 0 else None, "resumed": resumed,
+                      "ranks_same": ranks_same, "losses": list(a.train_loss_history),
+                      "iteration_ms": t["iteration"], "batch_ms": t["batch"],
+                      "images_per_s": TRAIN_BATCH * world / t["iteration"] * 1e3,
+                      "state": opt.checkpoint_name + "_state", "opt": opt}
+        del a, r
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 18's bar on a world's gradient against world 1's on the whole
+# global batch at once, relative L2: about 15x and 10x the gaps of the
+# first run (two gloo ranks on one H100 80GB HBM3, 700 W: 1.34e-4 float32,
+# 2.0e-3 bfloat16)
+GRAD_BATCH_LIMITS = {"float32": 2e-3, "bfloat16": 2e-2}
+
+
+def _rel_l2(a, b):
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def grad_parity(torch, trainer, got, world):
+    """Phase 18's gradient check of a world's gradient `got` on
+    dp_batch(world x TRAIN_BATCH), by `trainer` in this process (world 1):
+    against the mean of the gradients of each rank's rows computed here
+    one after the other (what the ranks compute, averaged as the
+    all-reduce does; bit-identical at world 2, the reduction's order at
+    world 4): relative L2 <= 1e-6; and against the gradient of the whole
+    global batch at once (another batch shape, so other convolution
+    algorithms and rounding, which the instance norm's one-pass variance
+    amplifies: the JAX package's element-wise rtol 2e-4 does not hold for
+    the elements near 0 here): relative L2 <= GRAD_BATCH_LIMITS. Returns
+    the figures."""
+    import numpy as np
+
+    n = TRAIN_BATCH * world
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, full = dp_grads(torch, trainer, n)
+        parts = [dp_grads(torch, trainer, n, slice(k * TRAIN_BATCH, (k + 1) * TRAIN_BATCH))[1]
+                 for k in range(world)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    mean = np.sum(parts, axis=0, dtype=np.float32) / np.float32(world)
+    return {"vs_rows": _rel_l2(got, mean), "vs_rows_max_abs": float(np.abs(got - mean).max()),
+            "vs_batch": _rel_l2(got, full), "vs_batch_max_abs": float(np.abs(got - full).max()),
+            "grad_norm": float(np.linalg.norm(full))}
+
+
+def run_data_parallel(torch, workdir, counts, smi):
+    """Phase 18: data-parallel training at world 1 (this process) and
+    world c for every c > 1 of `counts` (c NCCL processes, one a card); on
+    a one-card machine, two gloo processes on card 0 check the contract
+    only. Each world's gradient against world 1's on the same global batch
+    (grad_parity), its same-world resume bit-identical, every rank's
+    parameters equal; then world 1 restores each world's checkpoint (rank
+    0's sidecar) and trains two more iterations. Images per second
+    (TrainProbe's median iteration, CUDA events, deterministic algorithms)
+    and the scaling efficiency against world 1. Returns {world: {dtype:
+    figures}}."""
+    import dataclasses
+    import math
+
+    from fast_artistic_videos_tpu_torch.parallel import mesh
+    from fast_artistic_videos_tpu_torch.train.trainer import Trainer
+    from fast_artistic_videos_tpu_torch.video.evaluation import load_vgg_params
+
+    vgg_path = os.path.join(workdir, "vgg16.npz")
+    if not os.path.exists(vgg_path):
+        vgg_npz(EVAL_VGG_SEED, vgg_path)
+    runs = {1: dp_train(workdir, "cuda:0")}
+    worlds = [(c, "nccl", "cuda") for c in counts if c > 1] or [(2, "gloo", "cuda:0")]
+    backends = {1: "none"}
+    for world, backend, device in worlds:
+        # each rank samples its batch with torch on the host: the host's
+        # cores are split between the ranks (torchrun's default is one
+        # thread a rank), or the ranks' thread pools contend for them
+        runs[world] = mesh.spawn_ranks(dp_train, world, workdir, device, backend=backend,
+                                       timeout=900,
+                                       threads=max(1, (os.cpu_count() or 1) // world))[0]
+        backends[world] = backend
+    vgg_params = load_vgg_params(vgg_path, "cuda:0")
+    images = seeded_images(DP_SEED, DP_IMAGES, TRAIN_SIZE)
+    out = {}
+    for world, res in runs.items():
+        out[world] = {}
+        for dname in ("float32", "bfloat16"):
+            r = res[dname]
+            par, restored = None, None
+            if world > 1:
+                # world 1 on the same global batch, then on this world's checkpoint
+                opt1 = dataclasses.replace(r["opt"], num_data_devices=1,
+                                           checkpoint_name=r["opt"].checkpoint_name + "_w1")
+                tr = Trainer(opt1, vgg_params=vgg_params, device="cuda:0")
+                par = grad_parity(torch, tr, r["grad"], world)
+                tr.image_source = ArraySource(images, TRAIN_BATCH * world)
+                tr.restore_train_state(r["state"])
+                tr.train(DP_ITERS + 2, log_fn=lambda *x: None)
+                restored = tr.train_loss_history[DP_ITERS:]
+                if tr.iteration != DP_ITERS + 2 or not all(math.isfinite(v)
+                                                                for v in restored):
+                    raise AssertionError(f"world {world} {dname}: the restore onto world 1 "
+                                         f"did not train on: {restored}")
+                del tr
+            eff = r["images_per_s"] / (world * runs[1][dname]["images_per_s"])
+            fig = {k: r[k] for k in ("loss", "resumed", "ranks_same", "iteration_ms",
+                                     "batch_ms", "images_per_s")}
+            fig.update(grad=par, efficiency=eff, backend=backends[world],
+                       restored_world_1=restored)
+            contract = backends[world] == "gloo"
+            grad_line = "" if par is None else (
+                f"; gradient on the global batch of {TRAIN_BATCH * world} vs world 1 on each "
+                f"rank's rows, averaged: rel L2 {par['vs_rows']:.3g} (max abs "
+                f"{par['vs_rows_max_abs']:.3g}; limit 1e-6), vs world 1 on the whole batch at "
+                f"once: rel L2 {par['vs_batch']:.3g} (limit {GRAD_BATCH_LIMITS[dname]:g}; max "
+                f"abs {par['vs_batch_max_abs']:.3g}, gradient norm {par['grad_norm']:.4g})")
+            log(f"data-parallel {dname} world {world} ({backends[world]}"
+                f"{'; two ranks on card 0: the contract only, no scaling' if contract else ''}): "
+                f"loss {r['loss']:.6g}{grad_line}; same-world resume bit-identical "
+                f"{r['resumed']}; ranks' parameters equal {r['ranks_same']}; iteration "
+                f"{r['iteration_ms']:.3f} ms (its batch on the host {r['batch_ms']:.3f} ms, "
+                f"serial in each rank), {r['images_per_s']:.2f} images/s"
+                + ("" if contract else f", scaling efficiency {eff:.3f}")
+                + ("" if restored is None else f"; restored onto world 1, losses of "
+                   f"iterations {DP_ITERS + 1}-{DP_ITERS + 2}: {restored}") + f"; {smi}")
+            ok = par is None or (par["vs_rows"] <= 1e-6
+                                 and par["vs_batch"] <= GRAD_BATCH_LIMITS[dname])
+            if not (ok and r["resumed"] and r["ranks_same"]):
+                raise AssertionError(f"data-parallel {dname} world {world}: {fig}")
+            out[world][dname] = fig
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_spatial(torch, counts, smi):
+    """Phase 19: SpatialStylizer (parallel/spatial.py) of the demo model on
+    a 1080p frame (float32, seeded VGG-space input), split over k of
+    SPATIAL_SHARDS cards (on a one-card machine: 2 shards on card 0,
+    stated, no speed-up claimed), against the unsharded plain forward on
+    card 0: max abs <= 2e-3 (the JAX package's bar for its sharded
+    forward). Latency: host clock with every card synchronized, median of
+    SPATIAL_REPS after one warm-up, beside the unsharded plain and kernel
+    forwards on one card. Then one 4K (2160x3840) forward on card 0, plain
+    and kernel path, with its peak memory. Returns the figures."""
+    from fast_artistic_videos_tpu_torch.models import checkpoint, stylizer
+    from fast_artistic_videos_tpu_torch.parallel.spatial import SpatialStylizer
+
+    cards = torch.cuda.device_count()
+    spec, params, _ = checkpoint.load_model("demo", "cuda:0")
+    gen = torch.Generator(device="cuda:0").manual_seed(19)
+
+    def frame(h, w):
+        return torch.randn(1, h, w, 7, device="cuda:0", generator=gen) * 60
+
+    def latency(fn):
+        fn()
+        ms = []
+        for _ in range(SPATIAL_REPS):
+            _sync_all(torch)
+            t0 = time.monotonic()
+            out = fn()
+            _sync_all(torch)
+            ms.append((time.monotonic() - t0) * 1e3)
+        return _median(ms), out
+
+    x = frame(*SIZE_1080)
+    with torch.no_grad():
+        plain_ms, ref = latency(lambda: stylizer.apply(params, spec, x, fused=False))
+        kernel_ms, _ = latency(lambda: stylizer.apply(params, spec, x))
+        out = {"plain_ms": plain_ms, "kernel_ms": kernel_ms, "shards": {}}
+        for k in SPATIAL_SHARDS:
+            if k <= cards:
+                devs, note = [torch.device("cuda", i) for i in range(k)], f"{k} cards"
+            elif k == 2:
+                devs, note = [torch.device("cuda", 0)] * 2, "2 shards on card 0"
+            else:
+                log(f"spatial 1080p, {k} shards: not run ({cards} card{'s' * (cards > 1)})")
+                continue
+            sp = SpatialStylizer(spec, params, devices=devs)
+            ms, got = latency(lambda: sp(x))
+            err = (got - ref).abs().max().item()
+            log(f"spatial 1080p float32, {note}: {ms:.3f} ms a frame (host clock, median of "
+                f"{SPATIAL_REPS}) vs unsharded plain {plain_ms:.3f} ms and kernel path "
+                f"{kernel_ms:.3f} ms on one card; max abs vs the unsharded plain forward "
+                f"{err:.3g} (limit 2e-3); {smi}")
+            if not err <= 2e-3:
+                raise AssertionError(f"spatial {note}: max abs {err} > 2e-3")
+            out["shards"][note] = {"ms": ms, "max_abs": err}
+            del sp, got
+        del ref
+        torch.cuda.empty_cache()
+        x4 = frame(*SIZE_4K)
+        torch.cuda.reset_peak_memory_stats(0)
+        plain4, y4 = latency(lambda: stylizer.apply(params, spec, x4, fused=False))
+        peak_plain = torch.cuda.max_memory_allocated(0) / 2 ** 30
+        del y4
+        torch.cuda.reset_peak_memory_stats(0)
+        kernel4, y4 = latency(lambda: stylizer.apply(params, spec, x4))
+        peak_kernel = torch.cuda.max_memory_allocated(0) / 2 ** 30
+    if tuple(y4.shape) != (1, *SIZE_4K, 3) or not bool(torch.isfinite(y4).all()):
+        raise AssertionError(f"4K forward: {tuple(y4.shape)}, finite "
+                             f"{bool(torch.isfinite(y4).all())}")
+    out.update(plain_4k_ms=plain4, kernel_4k_ms=kernel4, peak_4k_gib=(peak_plain, peak_kernel))
+    log(f"4K ({SIZE_4K[0]}x{SIZE_4K[1]}) float32 forward on one card: plain {plain4:.3f} ms "
+        f"(peak {peak_plain:.3f} GiB), kernel path {kernel4:.3f} ms (peak {peak_kernel:.3f} "
+        f"GiB; max_memory_allocated, host clock, median of {SPATIAL_REPS}); {smi}")
+    return out
+
+
+def run_dryrun(torch, smi):
+    """Phase 20: parallel/dryrun.py dryrun_multichip on every card."""
+    from fast_artistic_videos_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    n = torch.cuda.device_count()
+    t0 = time.monotonic()
+    res = dryrun_multichip(n, device="cuda", timeout=600)
+    log(f"dryrun_multichip({n}) on {n} card(s): {time.monotonic() - t0:.1f} s; {smi}")
+    return res
+
+
+def run_cards(torch, workdir, smi):
+    """Phases 17-20 at every card count this machine has; the others are
+    printed as not run. Returns (figures, seconds)."""
+    counts, missing = card_counts(torch)
+    for c in missing:
+        log(f"phases 17-19 at {c} cards: not run ({torch.cuda.device_count()} cards)")
+    t0 = time.monotonic()
+    out = {"counts": counts, "not_run": missing, "seconds": {}}
+    for key, run in (("serving", lambda: run_serving(torch, counts, smi)),
+                     ("data_parallel", lambda: run_data_parallel(torch, workdir, counts, smi)),
+                     ("spatial", lambda: run_spatial(torch, counts, smi)),
+                     ("dryrun", lambda: run_dryrun(torch, smi))):
+        t1 = time.monotonic()
+        out[key] = run()
+        out["seconds"][key] = round(time.monotonic() - t1, 1)
+    return out, time.monotonic() - t0
+
+
+def _summary_cards(cards, secs, smi):
+    """The lines that sum phases 17-20 up."""
+    for dname, by_c in cards["serving"].items():
+        for c, fig in by_c.items():
+            log(f"serving {dname} {c} card(s) x {2 * c} streams: "
+                + "; ".join(f"{form} {fig[form]['fps']:.3f} frames/s, busy {fig[form]['busy']}"
+                            for form in ("one thread", "thread per card") if form in fig))
+    for world, by_d in cards["data_parallel"].items():
+        log(f"data-parallel world {world}: " + "; ".join(
+            f"{d} {f['images_per_s']:.2f} images/s (efficiency {f['efficiency']:.3f}, "
+            f"{f['backend']})" for d, f in by_d.items()))
+    sp = cards["spatial"]
+    log(f"spatial 1080p float32: unsharded plain {sp['plain_ms']:.3f} ms, kernel path "
+        f"{sp['kernel_ms']:.3f} ms; " + "; ".join(f"{k} {v['ms']:.3f} ms (max abs "
+                                                 f"{v['max_abs']:.3g})"
+                                                 for k, v in sp["shards"].items())
+        + f"; 4K plain {sp['plain_4k_ms']:.3f} ms, kernel path {sp['kernel_4k_ms']:.3f} ms")
+    log(f"{cards['dryrun']['line']}; card counts run {cards['counts']}, not run "
+        f"{cards['not_run']}; phases 17-20 took {secs:.1f} s (by phase {cards['seconds']}); "
+        f"{smi}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2584,6 +3205,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # phase 14's deterministic resume: cuBLAS reads its workspace setting
+    # when it creates a handle, before the first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from fast_artistic_videos_tpu_torch.ops import _build
 
     # 1. environment
@@ -2605,6 +3229,14 @@ def main() -> int:
             or not all(hg + hm > 0 for hg, hm in mma.values())
             or not all(mma[name][0] > 0 for name in fronts)):
         raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {mma}")
+    if sys.argv[1:] == ["--cards-only"]:
+        # phases 17-20 alone (a call on four cards need not repeat 3-16);
+        # no result line: the run is not the whole drive
+        with tempfile.TemporaryDirectory() as work:
+            cards, t_cards = run_cards(torch, work, smi)
+        _summary_cards(cards, t_cards, smi)
+        log(smi)
+        return 0
     # 3. kernels
     res = check_kernels(torch)
     with tempfile.TemporaryDirectory() as work:
@@ -2636,6 +3268,9 @@ def main() -> int:
             parity = check_train_fixture(torch, work)
         flow_tr = run_flow_training(torch, k1, smi)
         t_train = time.monotonic() - t_train
+        # 17. multi-stream serving; 18. data-parallel training; 19. spatial
+        # sharding and 4K on one card; 20. the multi-card dry run
+        cards, t_cards = run_cards(torch, work, smi)
     # 3, continued: K1 at every shape phases 4, 6, 9, 11, 13 and 16 launched,
     # K4 at every shape phases 14 and 15 launched
     check_recorded_warps(torch, res, k1)
@@ -2685,6 +3320,11 @@ def main() -> int:
                 {"shape": c["shape"], "dtype": _dname(torch, c["dtype"]), "entry": c["entry"],
                  "where": c["where"], "rel_l2": c["rel_l2"], "max_abs_err": c["err"],
                  "device_by": c["device_by"], **figures(c)} for c in cases if c["where"] != "block conv"]
+        if name in ("warp_banded", "res_chain_conv", "front_conv"):
+            # phase 17's launches at the largest card count (2 streams a card)
+            top = max(cards["counts"])
+            row["serving_launches"] = {d: cards["serving"][d][top]["launches"][name]
+                                       for d in ("float32", "bfloat16")}
         if name == "strip_warp_sum":
             # the blend beside the composition it replaced and the same
             # composition over grid_sample, both dtypes of the faces
@@ -2746,6 +3386,7 @@ def main() -> int:
     log(f"trainer fixture parity {parity}; h5py {training['h5py']}; flow training step "
         f"{flow_tr['step_ms']:.3f} ms, flow evaluation fixture EPE rel {flow_tr['epe_rel']:.3g}, "
         f"pass abs {flow_tr['pass_abs']:.3g}; phases 14-16 took {t_train:.1f} s; {smi}")
+    _summary_cards(cards, t_cards, smi)
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

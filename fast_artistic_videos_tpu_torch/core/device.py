@@ -32,6 +32,18 @@ def resolve(device=DEFAULT) -> torch.device:
     return dev
 
 
+def resolve_all(devices=None):
+    """A list of devices: every card for None (or "cuda"), else the given
+    device or list of devices, each through :func:`resolve` (repeats
+    allowed: the CPU tests pass ["cpu", "cpu"])."""
+    if devices is None or (isinstance(devices, str) and devices == "cuda"):
+        resolve("cuda")
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    return [resolve(d) for d in devices]
+
+
 class _Float32Convs:
     """Context manager: cuDNN convolutions and cuBLAS matrix products
     inside it run with TF32 off. The flags are process-wide and the flow

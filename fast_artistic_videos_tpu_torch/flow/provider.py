@@ -24,14 +24,16 @@ from . import consistency, estimator
 
 class _LateScalar:
     """A 0-d device tensor copied to the host without blocking; ``get``
-    waits for that copy alone (an event), not for the device."""
+    waits for that copy alone (an event), not for the device. The copy
+    runs on the current stream of `t`'s card, whichever card is current,
+    so the event is recorded on that stream."""
 
     def __init__(self, t):
         if t.is_cuda:
             self._host = torch.empty((), dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._host, self._event = t, None
 

@@ -225,11 +225,21 @@ def init_params(generator: torch.Generator, spec: ModelSpec,
             in_ch = d
         if layer.norm_after:
             params[name + "_norm"] = _init_norm(generator, in_ch, use_in)
-    return _to_device(params, dev)
+    return to_device(params, dev)
 
 
-def _to_device(tree, dev):
-    return {k: _to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+def leaves(tree):
+    """The tensors of a nested parameter dict, in insertion order."""
+    out = []
+    for v in tree.values():
+        out.extend(leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def to_device(tree, dev):
+    """A parameter tree with every leaf on `dev` (a leaf already there is
+    kept, not copied)."""
+    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
 
 

@@ -48,8 +48,26 @@ In the port:
     the history accumulators), ``<base>.json`` (the history) and
     ``<base>_<steps>.npz`` (the model, in the JAX package's layout, which
     both packages' ``load_model`` read);
-  * one device: ``num_data_devices > 1`` raises (data-parallel training
-    over NCCL is ROADMAP slice F).
+  * data parallel: one process per card under a ``torch.distributed``
+    process group (``parallel.mesh.init_process_group``; NCCL on the cards,
+    gloo on the CPU), ``num_data_devices`` equal to its world size. The JAX
+    trainer's multi-process contract holds: ``batch_size`` is global and
+    divisible by the world size, and each rank's sources serve its
+    contiguous shard of the dataset, ``batch_size / world`` rows a batch;
+    every rank seeds the same generators, so the data-mix wheel, the
+    synthetic transforms, the vr source and validation draw the same
+    numbers in the same order on every rank; parameters are broadcast from
+    rank 0 after init and after ``set_params``; the gradients are averaged
+    over the ranks (one all-reduce of a flat buffer) between the backward
+    and the optimizer step; the logged train and validation losses are
+    means over the ranks (each rank's loss is over its own rows, the TV
+    term divided by the rank's own batch, so the mean over ranks is the
+    global batch's loss). Rank 0 alone writes the history JSON, the
+    ``.npz`` and ``<base>_state.pt``; every rank writes its RNG sidecar
+    (``.rng.json`` on rank 0, ``.rng.p{i}.json`` on rank i), and a
+    restore reads its own sidecar, else ``.rng.json``, so a checkpoint
+    restores onto a smaller world. ``num_data_devices > 1`` without a
+    process group raises.
 """
 
 from __future__ import annotations
@@ -76,18 +94,12 @@ from ..core.config import (
 )
 from ..flow.estimator import resize_bilinear
 from ..models import arch_dsl, checkpoint as model_ckpt, stylizer, vgg
+from ..models.stylizer import leaves
 from ..ops import filters, tv, warp
+from ..parallel import mesh
 from ..ops.preprocess import vgg_deprocess, vgg_preprocess
 from . import data as data_mod
 from . import data_vr, losses
-
-
-def leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested parameter dict, in insertion order."""
-    out = []
-    for v in tree.values():
-        out.extend(leaves(v) if isinstance(v, dict) else [v])
-    return out
 
 
 def _detached(tree):
@@ -96,19 +108,30 @@ def _detached(tree):
 
 
 class Trainer:
-    """Trains a video style model on one device (`device`: the card unless
-    ``device="cpu"``). vgg_params: the loss network (``models.vgg`` tree on
-    `device`), None for a random one. image_model: (spec, params) of a
-    frame-1 image model, or None."""
+    """Trains a video style model on `device` (the card unless
+    ``device="cpu"``; under an NCCL process group, the rank's card), one
+    rank of a data-parallel world when a process group is initialized.
+    vgg_params: the loss network (``models.vgg`` tree on `device`), None
+    for a random one. image_model: (spec, params) of a frame-1 image model,
+    or None."""
 
     def __init__(self, opt: TrainOptions, vgg_params=None, image_model=None,
                  device=device_mod.DEFAULT):
-        if opt.num_data_devices > 1:
-            raise NotImplementedError(
-                f"num_data_devices {opt.num_data_devices}: the port trains on one device; "
-                f"data-parallel training (DDP over NCCL) is ROADMAP slice F")
+        world = mesh.world()
+        if not mesh.initialized() and opt.num_data_devices > 1:
+            raise RuntimeError(
+                f"num_data_devices {opt.num_data_devices}: data-parallel training runs one "
+                f"process per card; launch {opt.num_data_devices} processes (torchrun, or "
+                f"RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT) that each call "
+                f"parallel.mesh.init_process_group() before building the trainer")
+        if mesh.initialized() and opt.num_data_devices != world:
+            raise ValueError(f"num_data_devices {opt.num_data_devices} != the process "
+                             f"group's world size {world}")
+        if opt.batch_size % world:
+            raise ValueError(f"batch_size {opt.batch_size} not divisible by the world "
+                             f"size {world}")
         self.opt = opt
-        self.device = device_mod.resolve(device)
+        self.device = mesh.rank_device(device)
         self.spec = arch_dsl.parse_arch(
             opt.arch,
             in_channels=7,
@@ -149,6 +172,7 @@ class Trainer:
         self.image_model = image_model
 
         self.params = stylizer.init_params(self.generator, self.spec, self.device)
+        mesh.broadcast_params(leaves(self.params))
         for t in leaves(self.params):
             t.requires_grad_(True)
         self.lr_sched = parse_lr_schedule(opt.learning_rate)
@@ -163,13 +187,16 @@ class Trainer:
         self.wheel = data_mix_wheel(self.mix)
         h, w = (int(v) for v in opt.train_img_size.split(":"))
         self.train_hw = (h, w)
+        # batch_size is global; each rank loads its own shard's rows
+        local_bs = opt.batch_size // world
+        shard_kw = dict(num_shards=world, shard_index=mesh.rank())
         self.image_source = (
-            data_mod.H5ImageSource(opt.h5_file, opt.batch_size, out_hw=(h, w),
-                                   max_train=opt.max_train)
+            data_mod.H5ImageSource(opt.h5_file, local_bs, out_hw=(h, w),
+                                   max_train=opt.max_train, **shard_kw)
             if opt.h5_file else None)
         self.video_source = (
-            data_mod.H5VideoSource(opt.h5_file_video, opt.batch_size,
-                                   max_train=opt.max_train)
+            data_mod.H5VideoSource(opt.h5_file_video, local_bs,
+                                   max_train=opt.max_train, **shard_kw)
             if opt.h5_file_video else None)
         self.data_rng = np.random.default_rng(opt.seed + 1)
         self._vr_maps = data_vr.VRMaps()
@@ -208,6 +235,7 @@ class Trainer:
 
         with torch.no_grad():
             copy(self.params, src)
+        mesh.broadcast_params(leaves(self.params))
         self.optimizer = self._make_optimizer()
 
     # ------------------------------------------------------------------
@@ -257,7 +285,10 @@ class Trainer:
             warped = warp.bilinear_warp(out1, flows[i]) * cert3
             prior = warped
             if opt.fill_occlusions == "uniform-random":
-                rnd = torch.rand((n, h, w, 3), generator=self.generator, device=self.device)
+                # the global batch's noise on every rank (the generators stay
+                # in step), each rank keeping its own rows of it
+                rnd = mesh.local_rows(torch.rand((n * mesh.world(), h, w, 3),
+                                                 generator=self.generator, device=self.device))
                 prior = warped + vgg_preprocess(rnd) * (1.0 - cert3)
             x = torch.cat([imgs[i + 1], prior, certs[i]], dim=-1)
             grad = torch.is_grad_enabled() and (opt.full_bptt or i == num_steps - 1)
@@ -308,6 +339,7 @@ class Trainer:
             loss, (aux, out2, warped) = self._loss_fn(self.params, imgs, flows, certs,
                                                       num_steps, first_mode)
             self._backward(loss)
+            mesh.all_reduce_grads(leaves(self.params))
             self._optimizer_step(lr)
         return (loss.detach(), {k: v.detach() for k, v in aux.items()}, out2.detach(),
                 warped.detach())
@@ -366,6 +398,7 @@ class Trainer:
             imgs, flows, certs, num_steps = self._get_batch("train", source, num_steps)
             loss, aux, out2, warped = self._train_step(
                 imgs, flows, certs, num_steps, self._first_mode(source), lr)
+            loss, aux = self._mean_over_ranks(loss, aux)
             loss_val = float(loss)
             self._accumulate(loss_val, aux)
             if t % opt.print_every == 0:
@@ -373,7 +406,7 @@ class Trainer:
                        f"[{source} x{num_steps}] {time.monotonic() - t_start:.1f}s")
             if t % opt.history_every == 0:
                 self._flush_history()
-            if opt.images_every > 0 and t % opt.images_every == 1:
+            if opt.images_every > 0 and t % opt.images_every == 1 and mesh.rank() == 0:
                 self._dump_debug_images(imgs, certs, out2, warped, num_steps)
             if t % opt.checkpoint_every == 0:
                 self.validate(log_fn)
@@ -381,6 +414,16 @@ class Trainer:
         return self
 
     # ------------------------------------------------------------------
+
+    @staticmethod
+    def _mean_over_ranks(loss, aux):
+        """The loss and the aux terms as means over the ranks (one
+        all-reduce; themselves in a world of one)."""
+        if mesh.world() == 1:
+            return loss, aux
+        keys = list(aux)
+        vals = mesh.mean_over_ranks(torch.stack([loss.float()] + [aux[k].float() for k in keys]))
+        return vals[0], dict(zip(keys, vals[1:]))
 
     def _accumulate(self, loss_val: float, aux):
         self._total_accum += loss_val
@@ -421,6 +464,7 @@ class Trainer:
             for source, weight in self.mix.items():
                 imgs, flows, certs, steps = self._get_batch("val", source, num_steps)
                 _, aux = self._eval_loss(imgs, flows, certs, steps, self._first_mode(source))
+                _, aux = self._mean_over_ranks(aux["total"], aux)
                 part += weight * float(aux["val_sum"]) / steps
                 part_last += weight * float(aux["val_last"])
             val_loss += part / denom
@@ -467,29 +511,37 @@ class Trainer:
             "percept_loss_history": self.percept_loss_history,
             "iter": self.iteration,
         }
-        with open(base + ".json", "w") as f:
-            json.dump(history, f)
+        # the history and the model are the same on every rank: rank 0
+        # alone writes them (two processes racing on one path corrupt it)
+        primary = mesh.rank() == 0
+        if primary:
+            with open(base + ".json", "w") as f:
+                json.dump(history, f)
         num_steps = int(schedule_value(self.frame_steps_sched, self.iteration))
-        model_ckpt.save_model(
-            f"{base}_{num_steps}.npz",
-            model_ckpt.params_to_numpy(self.params),
-            {
-                "arch": opt.arch,
-                "in_channels": 7,
-                "padding_type": opt.padding_type,
-                "use_instance_norm": opt.use_instance_norm,
-                "tanh_constant": opt.tanh_constant,
-                "iter": self.iteration,
-            },
-        )
+        if primary:
+            model_ckpt.save_model(
+                f"{base}_{num_steps}.npz",
+                model_ckpt.params_to_numpy(self.params),
+                {
+                    "arch": opt.arch,
+                    "in_channels": 7,
+                    "padding_type": opt.padding_type,
+                    "use_instance_norm": opt.use_instance_norm,
+                    "tanh_constant": opt.tanh_constant,
+                    "iter": self.iteration,
+                },
+            )
         # the whole training state, the optimizer's included (the reference
         # drops it, README.md:270)
         self._save_train_state(base + "_state")
+        # no rank reads a checkpoint before every rank has written it
+        mesh.barrier()
 
     def _save_train_state(self, path: str):
-        torch.save({"params": _detached(self.params),
-                    "optimizer": self.optimizer.state_dict(),
-                    "iteration": self.iteration}, path + ".pt")
+        if mesh.rank() == 0:   # replicated: the same on every rank
+            torch.save({"params": _detached(self.params),
+                        "optimizer": self.optimizer.state_dict(),
+                        "iteration": self.iteration}, path + ".pt")
         # the RNG streams and data cursors, so a restored run replays the
         # iterations an uninterrupted run would have made; the 128-bit PCG64
         # state goes as decimal strings
@@ -506,7 +558,7 @@ class Trainer:
             "total_accum": self._total_accum,
             "loss_accum": self._loss_accum,
         }
-        with open(path + ".rng.json", "w") as f:
+        with open(path + _rng_sidecar_suffix(), "w") as f:
             json.dump(side, f)
 
     def restore_train_state(self, path: str):
@@ -521,7 +573,11 @@ class Trainer:
         self.iteration = int(state["iteration"])
         if self.video_source:
             self.video_source.set_cursor_from_iteration("train", self.iteration + 1)
-        side_path = path + ".rng.json"
+        # the rank's own sidecar (its data cursors are its shard's), else
+        # rank 0's: a checkpoint restores onto a smaller world
+        side_path = path + _rng_sidecar_suffix()
+        if not os.path.exists(side_path):
+            side_path = path + ".rng.json"
         if os.path.exists(side_path):
             with open(side_path) as f:
                 side = json.load(f)
@@ -549,6 +605,13 @@ class Trainer:
                     if k in hist:
                         setattr(self, k, hist[k])
         return self
+
+
+def _rng_sidecar_suffix() -> str:
+    """Rank 0 writes ".rng.json" (a one-process checkpoint's name); rank i
+    ".rng.p{i}.json", so the ranks' data cursors never collide."""
+    r = mesh.rank()
+    return ".rng.json" if r == 0 else f".rng.p{r}.json"
 
 
 def _scale_shorter_side(img: np.ndarray, size: int) -> np.ndarray:

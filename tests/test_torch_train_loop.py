@@ -208,5 +208,7 @@ def test_cli_train_runs_on_the_cpu(h5_files, vgg_path, tmp_path):
 
 
 def test_trainer_refuses_data_parallel(h5_files):
-    with pytest.raises(NotImplementedError, match="slice F"):
+    # data-parallel training needs a process group, one process per card
+    # (tests/test_torch_parallel.py trains under one)
+    with pytest.raises(RuntimeError, match="one process per card"):
         _port(_kw(h5_files[0], num_data_devices=2))
