@@ -19,6 +19,7 @@ import torch
 
 from ..core import device as device_mod
 from ..ops.warp import flow_band
+from ..utils import profiling
 from . import consistency, estimator
 
 
@@ -37,6 +38,7 @@ class _LateScalar:
         else:
             self._host, self._event = t, None
 
+    @profiling.traced("flow.band_wait")
     def get(self) -> float:
         if self._event is not None:
             self._event.synchronize()
@@ -82,6 +84,7 @@ class StreamingFlowProvider:
         self._prev_feats = None
         self._pending = None
 
+    @profiling.traced("flow")
     @torch.no_grad()
     def __call__(self, frame) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         feats = self.estimator.prep(frame, self.flow_scale)
@@ -157,6 +160,7 @@ class BatchedStreamingFlowProvider:
         self._prev_feats = None
         self._pending = None
 
+    @profiling.traced("flow")
     @torch.no_grad()
     def __call__(self, frames):
         n, h, w = frames.shape[0], frames.shape[1], frames.shape[2]

@@ -148,12 +148,14 @@ class Kernel:
     at no other time; ``routes[entry]`` counts the same launches by the C
     entry that took them (K2 and K4 have a float32 and a tensor-core
     route, K2 and K3 also the general template, K5 a single-map and a
-    summing entry). :meth:`reset` sets both to 0."""
+    summing entry). :meth:`reset` sets both to 0. ``span`` names the span
+    (``utils.profiling``) that a call of its Python entry opens on a card."""
 
-    def __init__(self, name: str, source: str, replaces: str):
+    def __init__(self, name: str, source: str, replaces: str, span: str):
         self.name = name
         self.source = source
         self.replaces = replaces
+        self.span = span
         self.launches = 0
         self.routes = {}
         self._count_lock = threading.Lock()  # the flow thread launches too

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from ._build import Kernel, no_grad_inputs, ptr
 
 TC_ENTRY = "fav_conv_tc"
@@ -236,6 +237,12 @@ def conv_in(kernel: Kernel, x, w, b, *, stride: int, pad: int, eff=None,
     if x.device.type == "cpu":
         return conv_in_plain(x, w, b, stride=stride, pad=pad, eff=eff, relu=relu,
                              skip=skip, emit_input=emit_input)
+    with profiling.span(kernel.span):
+        return _conv_in_card(kernel, x, w, b, stride, pad, eff, relu, skip, emit_input)
+
+
+def _conv_in_card(kernel: Kernel, x, w, b, stride: int, pad: int, eff, relu: bool, skip,
+                  emit_input: bool):
     if x.device.type != "cuda":
         raise ValueError(f"{kernel.name}: unsupported device {x.device}")
     dtype = x.dtype

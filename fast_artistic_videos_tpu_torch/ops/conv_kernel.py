@@ -27,11 +27,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from ._build import Kernel, no_grad_inputs
 from ._conv_in import CONV3X3_ENTRIES, conv_route, launch_3x3, rounded_bias
 
 KERNEL = Kernel("conv3x3", "fast_artistic_videos_tpu_torch/csrc/conv3x3_f32.cu",
-                "fast_artistic_videos_tpu/ops/conv_pallas.py:40")
+                "fast_artistic_videos_tpu/ops/conv_pallas.py:40", "kernel.K4")
 
 
 def conv3x3_plain(x, w, b, relu: bool = False, pad: int = 1):
@@ -48,6 +49,11 @@ def _launch(x, w, b, relu: bool, pad: int):
     no_grad_inputs("conv3x3", x, w, b)
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, relu, pad)
+    with profiling.span(KERNEL.span):
+        return _launch_card(x, w, b, relu, pad)
+
+
+def _launch_card(x, w, b, relu: bool, pad: int):
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3: unsupported device {x.device}")
     dtype = x.dtype

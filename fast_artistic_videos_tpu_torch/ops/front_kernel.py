@@ -27,7 +27,7 @@ from ._build import Kernel
 from ._conv_in import conv_in, conv_in_plain
 
 KERNEL = Kernel("front_conv", "fast_artistic_videos_tpu_torch/csrc/front_f32.cu",
-                "fast_artistic_videos_tpu/ops/front_pallas.py:44")
+                "fast_artistic_videos_tpu/ops/front_pallas.py:44", "kernel.K3")
 
 
 def same_conv(x, w, b, stride: int, pad: int, eff=None, relu: bool = False):

@@ -26,7 +26,7 @@ from ._build import Kernel
 from ._conv_in import conv_in, conv_in_plain
 
 KERNEL = Kernel("res_chain_conv", "fast_artistic_videos_tpu_torch/csrc/conv3x3_f32.cu",
-                "fast_artistic_videos_tpu/ops/rblock_pallas.py:69")
+                "fast_artistic_videos_tpu/ops/rblock_pallas.py:69", "kernel.K2")
 
 
 def chain_conv(x, w, b, eff=None, pre_relu: bool = False, skip=None,

@@ -47,11 +47,12 @@ import warnings
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..video import vr_geometry as vr
 from ._build import Kernel, no_grad_inputs, ptr
 
 KERNEL = Kernel("strip_warp", "fast_artistic_videos_tpu_torch/csrc/strip_warp.cu",
-                "fast_artistic_videos_tpu/ops/warp_pallas.py:142")
+                "fast_artistic_videos_tpu/ops/warp_pallas.py:142", "kernel.K5")
 
 _UNMAPPED = -4      # a floor index whose two taps both fall outside the image
 L, R, T, B = range(4)           # the left, right, top and bottom border maps
@@ -270,7 +271,8 @@ class StripSet(BorderSums):
         if div.device.type == "cpu":
             return self.prior_plain(pos, segments, div)
         mode = 1 if pos in PRIOR_DIVIDES else 0
-        return self._launch((PRIOR_TERMS[pos],), segments, div, None, mode)[0]
+        with profiling.span(KERNEL.span):
+            return self._launch((PRIOR_TERMS[pos],), segments, div, None, mode)[0]
 
     def blend(self, segments, gm, div):
         """The six blended faces, float32 (H, W, 3) each (views of one
@@ -278,7 +280,8 @@ class StripSet(BorderSums):
         no_grad_inputs("strip_warp_sum", gm, div, *segments)
         if div.device.type == "cpu":
             return self.blend_plain(segments, gm, div)
-        return list(self._launch(BLEND_TERMS, segments, div, gm, 2).unbind(0))
+        with profiling.span(KERNEL.span):
+            return list(self._launch(BLEND_TERMS, segments, div, gm, 2).unbind(0))
 
     def prior_plain(self, pos: int, segments, div):
         return compose_prior(self.plain_warps, pos, segments, div)

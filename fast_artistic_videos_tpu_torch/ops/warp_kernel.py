@@ -20,10 +20,11 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from ._build import Kernel, no_grad_inputs, ptr
 
 KERNEL = Kernel("warp_banded", "fast_artistic_videos_tpu_torch/csrc/warp_banded.cu",
-                "fast_artistic_videos_tpu/ops/warp_pallas.py:32")
+                "fast_artistic_videos_tpu/ops/warp_pallas.py:32", "kernel.K1")
 PIXEL_ENTRY = "fav_warp_banded"
 VEC_ENTRY = "fav_warp_banded_vec"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -85,6 +86,11 @@ def warp_banded(img, flow, band: int):
     no_grad_inputs("warp_banded", img, flow)
     if img.device.type == "cpu":
         return warp_banded_plain(img, flow, band)
+    with profiling.span(KERNEL.span):
+        return _launch(img, flow, band)
+
+
+def _launch(img, flow, band: int):
     if img.device.type != "cuda" or flow.device != img.device:
         raise ValueError(f"warp_banded: img on {img.device}, flow on {flow.device}")
     dtype = img.dtype

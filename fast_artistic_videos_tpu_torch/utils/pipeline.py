@@ -1,7 +1,7 @@
 """Host-side async pipelining for the frame loop.
 
 The PyTorch port's own copy of ``fast_artistic_videos_tpu/utils/pipeline.py`` (numpy and the standard
-library only): the port imports nothing of the JAX package.
+library only, and the port's spans): the port imports nothing of the JAX package.
 
 The reference synchronizes with the concurrently-running flow producer by
 polling the filesystem at 1 Hz with an extra safety sleep
@@ -18,11 +18,15 @@ polling the filesystem at 1 Hz with an extra safety sleep
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import os
 import queue
 import threading
 import time
 from typing import Callable, Iterator, Optional
+
+from . import profiling
 
 
 def file_complete(path: str) -> bool:
@@ -69,14 +73,20 @@ def wait_for_file(path: str, poll_seconds: float = 0.1, timeout: Optional[float]
 
 
 class Prefetcher:
-    """Wrap a (blocking) per-index loader into a lookahead thread."""
+    """Wrap a (blocking) per-index loader into a lookahead thread.
+
+    With `stream` given, the consumer's wait for index i is a span keyed
+    ``(stream, i)``; without it the wait carries the caller's key."""
 
     _SENTINEL = object()
 
-    def __init__(self, load: Callable[[int], object], indices, depth: int = 2):
+    def __init__(self, load: Callable[[int], object], indices, depth: int = 2,
+                 stream: Optional[int] = None):
         self._load = load
+        self._indices = list(indices)
+        self._stream = stream
         self._q: queue.Queue = queue.Queue(maxsize=depth)
-        self._thread = threading.Thread(target=self._run, args=(list(indices),), daemon=True)
+        self._thread = threading.Thread(target=self._run, args=(self._indices,), daemon=True)
         self._thread.start()
 
     def _run(self, indices):
@@ -92,8 +102,12 @@ class Prefetcher:
             self._q.put(self._SENTINEL)
 
     def __iter__(self) -> Iterator:
-        while True:
-            got = self._q.get()
+        for n in itertools.count():
+            keyed = (profiling.keyed(self._stream, self._indices[n])
+                     if self._stream is not None and n < len(self._indices)
+                     else contextlib.nullcontext())
+            with keyed, profiling.span("pipeline.prefetch_wait"):
+                got = self._q.get()
             if got is self._SENTINEL:
                 return
             i, item = got
@@ -126,7 +140,8 @@ class AsyncWriter:
     def put(self, fn: Callable[[], None]) -> None:
         if self._err:
             raise self._err
-        self._q.put(fn)
+        with profiling.span("pipeline.writer_wait"):
+            self._q.put(fn)
 
     def close(self) -> None:
         self._q.put(None)

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from ..core import io
 from ..core.config import StylizeOptions, format_flow_name
 from ..ops import warp
-from ..utils import pipeline
+from ..utils import pipeline, profiling
 from .engine import StylizerEngine, quantize_u8
 from .evaluation import write_eval_file
 
@@ -120,20 +120,21 @@ class VideoDriver:
 
     def _load_inputs(self, i: int):
         """Prefetchable bundle for frame i: (frame, flow_cert)."""
-        frame = self.load_frame_device(i)
-        if frame is None:
-            return None
-        first = self._is_single_image(i)
-        if self.flow_provider is not None and not self.opt.create_inconsistent:
-            flow_cert = self.flow_provider(frame)
-            if flow_cert is not None:
-                # the band of THIS pair, read before the provider moves on
-                flow_cert = flow_cert + (getattr(self.flow_provider, "last_band", None),)
-            if first:
-                flow_cert = None
-        else:
-            flow_cert = None if first else self.load_flow_cert(i)
-        return frame, flow_cert
+        with profiling.keyed(0, i):
+            frame = self.load_frame_device(i)
+            if frame is None:
+                return None
+            first = self._is_single_image(i)
+            if self.flow_provider is not None and not self.opt.create_inconsistent:
+                flow_cert = self.flow_provider(frame)
+                if flow_cert is not None:
+                    # the band of THIS pair, read before the provider moves on
+                    flow_cert = flow_cert + (getattr(self.flow_provider, "last_band", None),)
+                if first:
+                    flow_cert = None
+            else:
+                flow_cert = None if first else self.load_flow_cert(i)
+            return frame, flow_cert
 
     def _is_single_image(self, i: int) -> bool:
         if self.opt.create_inconsistent:
@@ -191,63 +192,64 @@ class VideoDriver:
         prev_out = None           # the previous output, for eval_fn
         writer = pipeline.AsyncWriter()
         try:
-            for i, (frame, flow_cert) in pipeline.Prefetcher(self._load_inputs, indices):
-                t0 = time.monotonic()
-                content = frame
-                out_u8 = None
-                if scale != 1.0:
-                    content = resize_bicubic(frame.float() / 255.0, scale)
-                if flow_cert is None or last_stylized is None:
-                    if fused_u8:
-                        stylized, out_u8 = self.engine.stylize_first(content, emit_u8=True)
-                    else:
-                        stylized = self.engine.stylize_first(content)
-                    delta = None
-                else:
-                    flow, cert, *rest = flow_cert
-                    band_hint = rest[0] if rest else None
+            for i, (frame, flow_cert) in pipeline.Prefetcher(self._load_inputs, indices, stream=0):
+                with profiling.keyed(0, i):
+                    t0 = time.monotonic()
+                    content = frame
+                    out_u8 = None
                     if scale != 1.0:
-                        flow = resize_bicubic(self.engine._tensor(flow), scale) * scale
-                        cert = resize_bicubic(self.engine._tensor(cert)[..., None],
-                                              scale)[..., 0]
-                        if band_hint is not None:
-                            band_hint = warp.flow_band(band_hint * scale)
-                    if reuse_k > 1:
-                        if delta is None or key_age >= reuse_k - 1:
-                            stylized, delta = self.engine.stylize_next_full(
-                                content, last_stylized, flow, cert, band_hint)
-                            key_age = 0
+                        content = resize_bicubic(frame.float() / 255.0, scale)
+                    if flow_cert is None or last_stylized is None:
+                        if fused_u8:
+                            stylized, out_u8 = self.engine.stylize_first(content, emit_u8=True)
                         else:
-                            stylized, delta = self.engine.stylize_next_reuse(
-                                content, last_stylized, flow, cert, delta, band_hint)
-                            key_age += 1
-                    elif fused_u8:
-                        stylized, out_u8 = self.engine.stylize_next(
-                            content, last_stylized, flow, cert, band_hint,
-                            emit_u8=True, pre_eroded=pre_eroded)
+                            stylized = self.engine.stylize_first(content)
+                        delta = None
                     else:
-                        stylized = self.engine.stylize_next(
-                            content, last_stylized, flow, cert, band_hint,
-                            pre_eroded=pre_eroded)
-                out_full = stylized
-                if scale != 1.0:
-                    out_full = resize_bicubic(stylized, frame.shape[0] / stylized.shape[0])
-                if out_u8 is None:
-                    out_u8 = quantize_u8(out_full)
-                dt = time.monotonic() - t0
-                out_path = self._out_path(i)
-                # the writer thread downloads the uint8 frame (its copy
-                # waits for this step's device work, not this thread)
-                writer.put(lambda p=out_path, s=out_u8: self.save(p, s.cpu().numpy()))
-                if progress:
-                    print(f"frame {i}: {dt * 1000:.1f} ms -> {out_path}")
-                if self.eval_fn is not None:
-                    row = self.eval_fn(i, frame.float() / 255.0, out_full, prev_out)
-                    if row is not None:
-                        self.eval_rows.append(list(row))
-                    prev_out = out_full
-                last_stylized = stylized
-                results.append(FrameResult(i, out_path, dt))
+                        flow, cert, *rest = flow_cert
+                        band_hint = rest[0] if rest else None
+                        if scale != 1.0:
+                            flow = resize_bicubic(self.engine._tensor(flow), scale) * scale
+                            cert = resize_bicubic(self.engine._tensor(cert)[..., None],
+                                                  scale)[..., 0]
+                            if band_hint is not None:
+                                band_hint = warp.flow_band(band_hint * scale)
+                        if reuse_k > 1:
+                            if delta is None or key_age >= reuse_k - 1:
+                                stylized, delta = self.engine.stylize_next_full(
+                                    content, last_stylized, flow, cert, band_hint)
+                                key_age = 0
+                            else:
+                                stylized, delta = self.engine.stylize_next_reuse(
+                                    content, last_stylized, flow, cert, delta, band_hint)
+                                key_age += 1
+                        elif fused_u8:
+                            stylized, out_u8 = self.engine.stylize_next(
+                                content, last_stylized, flow, cert, band_hint,
+                                emit_u8=True, pre_eroded=pre_eroded)
+                        else:
+                            stylized = self.engine.stylize_next(
+                                content, last_stylized, flow, cert, band_hint,
+                                pre_eroded=pre_eroded)
+                    out_full = stylized
+                    if scale != 1.0:
+                        out_full = resize_bicubic(stylized, frame.shape[0] / stylized.shape[0])
+                    if out_u8 is None:
+                        out_u8 = quantize_u8(out_full)
+                    dt = time.monotonic() - t0
+                    out_path = self._out_path(i)
+                    # the writer thread downloads the uint8 frame (its copy
+                    # waits for this step's device work, not this thread)
+                    writer.put(lambda p=out_path, s=out_u8: self.save(p, s.cpu().numpy()))
+                    if progress:
+                        print(f"frame {i}: {dt * 1000:.1f} ms -> {out_path}")
+                    if self.eval_fn is not None:
+                        row = self.eval_fn(i, frame.float() / 255.0, out_full, prev_out)
+                        if row is not None:
+                            self.eval_rows.append(list(row))
+                        prev_out = out_full
+                    last_stylized = stylized
+                    results.append(FrameResult(i, out_path, dt))
         finally:
             writer.close()
         if self.eval_rows and opt.evaluation_file:
@@ -278,7 +280,7 @@ class VideoDriver:
             pending.clear()
 
         try:
-            for i, (frame, _) in pipeline.Prefetcher(self._load_inputs, indices):
+            for i, (frame, _) in pipeline.Prefetcher(self._load_inputs, indices, stream=0):
                 pending.append((i, frame))
                 if len(pending) >= batch_n:
                     flush()

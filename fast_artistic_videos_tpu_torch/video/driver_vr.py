@@ -53,7 +53,7 @@ import torch
 from ..core import io
 from ..core.config import StylizeOptions, format_flow_name
 from ..ops import filters, strip_warp_kernel, warp
-from ..utils import pipeline
+from ..utils import pipeline, profiling
 from . import vr_geometry as vr
 from .engine import StylizerEngine
 from .evaluation import write_eval_file
@@ -327,24 +327,27 @@ class VRDriver:
         the temporal blend, and the engine's prior-conditioned stylization
         (the JAX package runs the same math as one fused program)."""
         opt = self.opt
-        cert_eroded = filters.min_filter(self.load_cert(i), opt.occlusions_min_filter)
-        prior = self.make_prior(i, cert_eroded)
-        input_mask = cert_eroded
-        if opt.smooth_certainty:
-            fm = self.smooth_cert_mask((i - 1) % 6)
-            if fm is not None:
-                input_mask = torch.minimum(cert_eroded, fm)
+        with profiling.span("vr.prior"):
+            cert_eroded = filters.min_filter(self.load_cert(i), opt.occlusions_min_filter)
+            prior = self.make_prior(i, cert_eroded)
+            input_mask = cert_eroded
+            if opt.smooth_certainty:
+                fm = self.smooth_cert_mask((i - 1) % 6)
+                if fm is not None:
+                    input_mask = torch.minimum(cert_eroded, fm)
         return self.engine.stylize_with_prior(img, prior.float(), input_mask,
                                               erode_cert=False)
 
     # -- outputs ------------------------------------------------------------
 
+    @profiling.traced("vr.blend")
     def blend_other_sides(self) -> List[torch.Tensor]:
         """The cross-face blend after a full frame (:454-509): 24 border
         warps, one K5 launch in all when every map has a strip warp."""
         g = self.geo
         return g.borders.blend(self.segments, g.grad_all, g.mask_all_div)
 
+    @profiling.traced("vr.outputs")
     def _outputs(self, segments):
         """uint8 faces, and the median-filtered equirectangular and cubemap
         images when asked for, on the device."""
@@ -431,47 +434,53 @@ class VRDriver:
             # on the prefetch thread while this frame runs (`start` is always
             # at pos 0)
             n_frames = (n_indices - start) // 6 + 1
-            prefetch = iter(pipeline.Prefetcher(
-                lambda k: self._load_frame_faces(start + k * 6), range(max(0, n_frames))))
+
+            def load(k):
+                i = start + k * 6
+                with profiling.keyed(0, (i - 1) // 6 + opt.start_frame):
+                    return self._load_frame_faces(i)
+
+            prefetch = iter(pipeline.Prefetcher(load, range(max(0, n_frames))))
         frame_faces = None
         writer = pipeline.AsyncWriter(depth=2)
         try:
             for i in range(start, n_indices + 1):
-                pos = (i - 1) % 6
-                if use_batched:
-                    if pos == 0 or frame_faces is None:
-                        got = next(prefetch, None)
-                        if got is None:
-                            break
-                        frame_faces = got[1]
-                        self._geometry(frame_faces[0])
-                        out = self.batched_flow(frame_faces)
-                        self._streamed = list(out) if out is not None else [None] * 6
-                    img = self.last_content = frame_faces[pos]
-                    t0 = time.monotonic()
-                else:
-                    img = self.load_face(i)
-                    if img is None:
-                        break
-                    t0 = time.monotonic()
-                    if self.flow_providers is not None and not opt.create_inconsistent:
-                        self._streamed[pos] = self.flow_providers[pos](img)
                 file_idx = (i - 1) // 6 + opt.start_frame
-                if self._is_single(i):
-                    stylized = self.engine.stylize_first(img)
-                else:
-                    stylized = self._face_step(i, img)
-                self.segments[pos] = stylized
-                if progress:
-                    print(f"frame {file_idx} face {PROC_ORDER[pos]}: "
-                          f"{(time.monotonic() - t0) * 1000:.1f} ms")
-                if self.eval_fn is not None:
-                    row = self.eval_fn(self, i)
-                    if row is not None:
-                        self.eval_rows.append(list(row))
-                if pos == 5:
-                    self._save_frame_outputs(file_idx, writer)
-                count += 1
+                with profiling.keyed(0, file_idx):
+                    pos = (i - 1) % 6
+                    if use_batched:
+                        if pos == 0 or frame_faces is None:
+                            got = next(prefetch, None)
+                            if got is None:
+                                break
+                            frame_faces = got[1]
+                            self._geometry(frame_faces[0])
+                            out = self.batched_flow(frame_faces)
+                            self._streamed = list(out) if out is not None else [None] * 6
+                        img = self.last_content = frame_faces[pos]
+                        t0 = time.monotonic()
+                    else:
+                        img = self.load_face(i)
+                        if img is None:
+                            break
+                        t0 = time.monotonic()
+                        if self.flow_providers is not None and not opt.create_inconsistent:
+                            self._streamed[pos] = self.flow_providers[pos](img)
+                    if self._is_single(i):
+                        stylized = self.engine.stylize_first(img)
+                    else:
+                        stylized = self._face_step(i, img)
+                    self.segments[pos] = stylized
+                    if progress:
+                        print(f"frame {file_idx} face {PROC_ORDER[pos]}: "
+                              f"{(time.monotonic() - t0) * 1000:.1f} ms")
+                    if self.eval_fn is not None:
+                        row = self.eval_fn(self, i)
+                        if row is not None:
+                            self.eval_rows.append(list(row))
+                    if pos == 5:
+                        self._save_frame_outputs(file_idx, writer)
+                    count += 1
         finally:
             writer.close()
         if self.eval_rows and opt.evaluation_file:

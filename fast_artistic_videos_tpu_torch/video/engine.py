@@ -26,6 +26,7 @@ import torch
 from ..core import device as device_mod
 from ..ops import filters, warp
 from ..ops.preprocess import vgg_deprocess, vgg_preprocess
+from ..utils import profiling
 
 
 @dataclasses.dataclass
@@ -115,9 +116,11 @@ class StylizerEngine:
         return torch.zeros(shape, device=self.device)
 
     def _run_model(self, which, x):
-        if which == "img":
-            return self.apply_img(self.params_img, x.to(self._dtype))
-        return self.apply_vid(self.params_vid, x.to(self._dtype))
+        x = x.to(self._dtype)
+        with profiling.span("stylizer"):
+            if which == "img":
+                return self.apply_img(self.params_img, x)
+            return self.apply_vid(self.params_vid, x)
 
     def _first(self, contents):
         """contents (N, H, W, 3) -> stylized (N, H, W, 3) float32 [0, 1]."""
@@ -218,6 +221,7 @@ class StylizerEngine:
         out[:h, :w] = arr
         return out, (h, w)
 
+    @profiling.traced("engine.step")
     @torch.no_grad()
     def stylize_first(self, content, emit_u8=False):
         """Stylize one frame independently. Returns the (H, W, 3) float32
@@ -228,6 +232,7 @@ class StylizerEngine:
             return out, quantize_u8(out)
         return out
 
+    @profiling.traced("engine.step")
     @torch.no_grad()
     def stylize_batch(self, contents) -> List[torch.Tensor]:
         """Stylize N independent frames in one forward (no temporal prior):
@@ -250,6 +255,7 @@ class StylizerEngine:
             return warp.flow_band(float(np.abs(flow).max()))
         return warp.flow_band(float(flow.abs().max()))
 
+    @profiling.traced("engine.step")
     @torch.no_grad()
     def stylize_next(self, content, prev_stylized, flow, cert, band_hint=None,
                      emit_u8=False, pre_eroded=False):
@@ -275,6 +281,7 @@ class StylizerEngine:
         cert, _ = self._pad(cert, mode="constant")   # padded area = occluded
         return (content, prev_stylized, flow.float(), cert.float()), band, (h, w)
 
+    @profiling.traced("engine.step")
     @torch.no_grad()
     def stylize_next_full(self, content, prev_stylized, flow, cert, band_hint=None):
         """Feature-reuse keyframe: stylize_next's math, plus the residual
@@ -284,6 +291,7 @@ class StylizerEngine:
         out, delta = self._next_full(*args, band)
         return out[:h, :w], delta
 
+    @profiling.traced("engine.step")
     @torch.no_grad()
     def stylize_next_reuse(self, content, prev_stylized, flow, cert, delta,
                            band_hint=None):
@@ -299,6 +307,7 @@ class StylizerEngine:
         out, delta = self._next_reuse(*args, delta, band, qband)
         return out[:h, :w], delta
 
+    @profiling.traced("engine.step")
     @torch.no_grad()
     def stylize_with_prior(self, content, prior_rgb, cert, erode_cert: bool = True):
         """VR-style entry: the caller assembles the prior image (the cube

@@ -26,9 +26,11 @@ from ..core import device as device_mod
 from ..flow import estimator as flow_estimator
 from ..flow.provider import StreamingFlowProvider
 from ..models import stylizer
+from ..utils import profiling
 from .engine import EngineConfig, StylizerEngine
 
 
+@profiling.traced("pool.upload")
 def _upload(frame, device: torch.device) -> torch.Tensor:
     """A frame (numpy or tensor) on `device`. To a card, from pinned host
     memory by a copy on the card's current stream that the host does not
@@ -85,6 +87,7 @@ class StreamPool:
                                                      flow_scale=flow_scale)
                                for i in range(n_streams)]
         self._prev: List[Optional[torch.Tensor]] = [None] * n_streams
+        self._frames = [0] * n_streams      # frames since reset: the spans' key
 
     def device_of(self, stream: int) -> torch.device:
         return self._stream_dev[stream]
@@ -92,6 +95,7 @@ class StreamPool:
     def reset(self, stream: int) -> None:
         """Start a new clip on this stream slot."""
         self._prev[stream] = None
+        self._frames[stream] = 0
         if self._providers[stream] is not None:
             self._providers[stream].reset()
 
@@ -103,11 +107,19 @@ class StreamPool:
         flow_cert: optional (backward_flow, certainty) when flow comes from
         files; omit it to use the pool's streaming flow provider
         (flow_params at construction). The first frame of a stream (or
-        after reset) is stylized on its own, as the drivers do."""
+        after reset) is stylized on its own, as the drivers do. The call is
+        the span ``pool.process``, keyed (stream, frames since reset)."""
+        frame_no = self._frames[stream]
+        self._frames[stream] = frame_no + 1
+        with profiling.keyed(stream, frame_no), profiling.span("pool.process"):
+            return self._process(stream, frame, flow_cert, band_hint)
+
+    def _process(self, stream: int, frame, flow_cert, band_hint) -> torch.Tensor:
         dev = self._stream_dev[stream]
         eng = self._engines[dev]
         frame_dev = _upload(frame, dev)
         provider = self._providers[stream]
+        given = flow_cert is not None
         if flow_cert is None and provider is not None:
             fc = provider(frame_dev)
             if fc is not None:
@@ -118,7 +130,8 @@ class StreamPool:
             out = eng.stylize_first(frame_dev)
         else:
             flow, cert = flow_cert
-            out = eng.stylize_next(frame_dev, prev, _upload(flow, dev), _upload(cert, dev),
-                                   band_hint)
+            if given:       # the provider's are on the card already
+                flow, cert = _upload(flow, dev), _upload(cert, dev)
+            out = eng.stylize_next(frame_dev, prev, flow, cert, band_hint)
         self._prev[stream] = out
         return out

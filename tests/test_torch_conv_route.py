@@ -233,7 +233,7 @@ def test_rounded_bias_is_built_once_per_version_and_dtype():
 
 
 def test_kernel_counts_routes_and_resets():
-    k = _build.Kernel("k", "src", "replaces")
+    k = _build.Kernel("k", "src", "replaces", "kernel.K0")
     k.launches, k.routes = 3, {"fav_conv_tc": 2, "fav_conv_in": 1}
     k.reset()
     assert k.launches == 0 and k.routes == {}

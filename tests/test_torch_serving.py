@@ -1,6 +1,6 @@
 """The port's multi-stream serving (fast_artistic_videos_tpu_torch:
-video.serving.StreamPool, cli.serve_streams) and utils.profiling on the
-CPU, against the JAX package's (tests/test_serving.py):
+video.serving.StreamPool, cli.serve_streams) on the CPU, against the JAX
+package's (tests/test_serving.py):
 
   * three streams of the demo model with the bundled flow estimator
     (streaming flow, 48x64 frames, float32) round-robin over ["cpu", "cpu"],
@@ -10,12 +10,8 @@ CPU, against the JAX package's (tests/test_serving.py):
   * the pool's streams against the port's solo engine on the same clips
     (flow and certainty passed in): atol 1e-5;
   * the CLI with --device cpu against the same JAX pool run, and the
-    device checks of the pool's entry points;
-  * StageTimer against the JAX package's, device_trace and device_sync.
+    device checks of the pool's entry points.
 """
-
-import json
-import os
 
 import jax
 import numpy as np
@@ -25,14 +21,12 @@ import torch
 from fast_artistic_videos_tpu.flow import estimator as jfest
 from fast_artistic_videos_tpu.models import checkpoint as jckpt
 from fast_artistic_videos_tpu.models import registry as jregistry
-from fast_artistic_videos_tpu.utils import profiling as jprof
 from fast_artistic_videos_tpu.video.serving import StreamPool as JaxStreamPool
 from fast_artistic_videos_tpu_torch.cli import serve_streams
 from fast_artistic_videos_tpu_torch.core import io
 from fast_artistic_videos_tpu_torch.flow import estimator as tfest
 from fast_artistic_videos_tpu_torch.models import checkpoint as tckpt
 from fast_artistic_videos_tpu_torch.models import stylizer as tsty
-from fast_artistic_videos_tpu_torch.utils import profiling
 from fast_artistic_videos_tpu_torch.video.engine import EngineConfig, StylizerEngine
 from fast_artistic_videos_tpu_torch.video.serving import StreamPool
 
@@ -173,26 +167,3 @@ def test_serve_streams_cli_matches_jax_pool(tmp_path, jax_outs):
         img = io.load_image(str(out / f"stream{s}-{t + 1:05d}.png"))
         assert img.shape == (H, W, 3)
         assert np.abs(img - jax_outs[i]).mean() <= 1e-2, (s, t)
-
-
-def test_stage_timer_matches_jax():
-    mine, theirs = profiling.StageTimer(), jprof.StageTimer()
-    for timer in (mine, theirs):
-        timer.add("flow", 0.25)
-        timer.add("stylize", 0.5)
-        timer.add("flow", 0.75)
-    assert mine.report() == theirs.report()
-    with mine.stage("save"):
-        pass
-    assert mine.counts["save"] == 1 and mine.totals["save"] >= 0.0
-
-
-def test_device_trace_and_sync(tmp_path):
-    x = torch.arange(6, dtype=torch.float32)
-    with profiling.device_trace(None):
-        assert profiling.device_sync(x) == 15.0
-    with profiling.device_trace(str(tmp_path / "trace")):
-        torch.relu(x).sum()
-    with open(tmp_path / "trace" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
-    assert os.listdir(tmp_path / "trace") == ["trace.json"]
