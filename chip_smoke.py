@@ -23,7 +23,15 @@ Phases (any failure exits non-zero, before the result line is printed):
      of six 922-px faces (and a border prior) in one launch, against its
      plain composition, timed beside the composition the VR driver ran
      before it (24 single-map launches, rotated copies, torch ops) and
-     beside the same composition over 24 grid_sample calls. K2 and K4 in
+     beside the same composition over 24 grid_sample calls. K6, the
+     folded upsample conv (float32 only), against its plain version at the
+     canonical net's four tail shapes (layers 9 and 11 at 1080p and on a
+     924-px face), beside cuDNN's conv of the upsampled input, with the
+     bounds of its folded and of the unfolded operations; then the
+     canonical net's stylizer (seeded weights) at 1080p and on a face: two
+     K6 launches a call in float32, none in bfloat16, the kernel path
+     against the plain path (the demo model of phases 4-20 upsamples by
+     learned full convs, so those phases count no K6 launch). K2 and K4 in
      bfloat16 are bit-identical with their packed weights and rounded bias
      cached and packed afresh, with the host microseconds per call of
      both. K1 takes the C entry ops/warp_kernel.py's warp_route names
@@ -155,7 +163,9 @@ cores; K3's row also lists its three layers under "layers", each with its
 shape and both dtypes' C entry and figures) and {"ok": true, "device":
 {...}}. K5's summing entry has a row of its own ("strip_warp_sum": the
 cross-face blend, with the times of the composition it replaced and of the
-same composition over grid_sample); K1's row lists its launches by C entry
+same composition over grid_sample); K6's row ("upsample_conv") lists its
+four cases with their unfolded bounds and the canonical net's launches and
+times ("canonical"); K1's row lists its launches by C entry
 ("routes") and every phase-3 case with its launches on the main paths
 ("cases"). float32 runs with TF32 off.
 """
@@ -191,7 +201,7 @@ TC_SOURCES = {"fav_conv_tc": "fast_artistic_videos_tpu_torch/csrc/conv_tc.cu",
 SYMBOLS = {"fav_conv_tc": "conv_tc_kernel", "fav_front_tc": "front_tc_kernel",
            "fav_conv_in": "conv_in_kernel", "fav_conv3x3_f32": "conv3x3_f32_kernel",
            "fav_front_f32": "front_f32_", "fav_strip_warp": "strip_warp_kernel",
-           "fav_strip_warp_sum": "strip_warp_sum_kernel"}
+           "fav_strip_warp_sum": "strip_warp_sum_kernel", "fav_upconv_f32": "upconv_f32_kernel"}
 # the C entry of each kernel by dtype on the stylizer's shapes (K3 and K2 at
 # batch 1, K4 at batch > 1), as ops/_conv_in.py's conv_route names them
 ENTRIES = {"bfloat16": {"res_chain_conv": "fav_conv_tc", "conv3x3": "fav_conv_tc",
@@ -262,12 +272,14 @@ def bound(nbytes, flops, dtype):
 
 
 def _kernels():
-    """{name: Kernel} of every hand-written kernel (K1-K5)."""
+    """{name: Kernel} of every hand-written kernel (K1-K6)."""
     from fast_artistic_videos_tpu_torch.ops import (conv_kernel, front_kernel, rblock_kernel,
-                                                    strip_warp_kernel, warp_kernel)
+                                                    strip_warp_kernel, upconv_kernel,
+                                                    warp_kernel)
 
     return {k.name: k for k in (warp_kernel.KERNEL, rblock_kernel.KERNEL, front_kernel.KERNEL,
-                                conv_kernel.KERNEL, strip_warp_kernel.KERNEL)}
+                                conv_kernel.KERNEL, strip_warp_kernel.KERNEL,
+                                upconv_kernel.KERNEL)}
 
 
 def _dname(torch, dtype):
@@ -715,6 +727,7 @@ def check_kernels(torch):
     res["strip_warp"] = check_strip_warp(torch, g)
     res["strip_warp_sum"] = check_strip_sum(torch, g)
     res["conv3x3"] = check_block_conv(torch, g)
+    res["upsample_conv"], res["canonical_tail"] = check_upconv(torch, g)
     check_bf16_packs(torch, g)
     return res
 
@@ -734,6 +747,108 @@ def check_block_conv(torch, g):
         b = (torch.randn(cout, generator=g) * 0.1).cuda()
         block_conv_case(torch, out, x, wt, b, relu, same, "block conv")
     return out
+
+
+# the canonical net's two folds (layer 9: 3x3 128 -> 64 after a U2; layer
+# 11: 9x9 64 -> 3 after a U2, then tanh * 150) at 1080p and on a 922-px face
+# (padded to 924): (label, low-resolution input shape, k, Cout, last layer)
+UPCONV_CASES = (("1080p layer 9", (1, 270, 480, 128), 3, 64, False),
+                ("1080p layer 11", (1, 540, 960, 64), 9, 3, True),
+                ("face layer 9", (1, 231, 231, 128), 3, 64, False),
+                ("face layer 11", (1, 462, 462, 64), 9, 3, True))
+
+
+def check_upconv(torch, g):
+    """K6 against its plain version (cuDNN's float32 conv of the folded
+    weights) at UPCONV_CASES, with the upsample's norm affine and ReLU in
+    the prologue: max abs <= 2e-5 of the output's max abs, the statistics
+    to rtol 1e-4; CUDA-event, device (profiler), plain and library times
+    (cuDNN's conv of the upsampled input alone, the conv the fold replaced),
+    the bound of the folded operations and that of the unfolded ones. Then
+    the canonical net (seeded weights; the demo model upsamples by learned
+    full convs and never takes K6) at 1080p and on a 924-px face: two K6
+    launches a call in float32 and none in bfloat16, the kernel path against
+    the plain (cuDNN) path (max-abs/255 <= 1e-3 float32, mean-abs/255 <= 1e-2
+    bfloat16) and both paths' times. Returns (cases, {where: {dtype:
+    figures}})."""
+    from fast_artistic_videos_tpu_torch.models import arch_dsl, stylizer
+    from fast_artistic_videos_tpu_torch.ops import upconv_kernel as uk
+
+    k6 = uk.KERNEL
+    out = []
+    for label, shape, k, cout, last in UPCONV_CASES:
+        n, h, w, cin = shape
+        x = torch.randn(*shape, generator=g).cuda()
+        wt = (torch.randn(cout, cin, k, k, generator=g) / (k * k * cin) ** 0.5).cuda()
+        b = (torch.randn(cout, generator=g) * 0.1).cuda()
+        eff = torch.stack([torch.rand(n, cin, generator=g) + 0.5,
+                           torch.randn(n, cin, generator=g)], dim=1).cuda()
+        kw = dict(eff=eff, relu=True, stats=not last, tanh_scale=150.0 if last else None)
+        before = k6.routes.get(uk.ENTRY, 0)
+        got = uk.upconv(x, wt, b, **kw)
+        want = uk.upconv_plain(x, wt, b, **kw)
+        torch.cuda.synchronize()
+        if k6.routes.get(uk.ENTRY, 0) != before + 1:
+            raise AssertionError(f"K6 {label}: the launch did not take {uk.ENTRY}")
+        y, yp = (got, want) if last else (got[0], want[0])
+        err, top = (y - yp).abs().max().item(), yp.abs().max().item()
+        stats_ok = last or bool(torch.allclose(got[1], want[1], rtol=1e-4, atol=1e-3))
+        ms = _time_ms(torch, lambda: uk.upconv(x, wt, b, **kw))
+        dev_ms = _profile_ms(torch, lambda: uk.upconv(x, wt, b, **kw), SYMBOLS[uk.ENTRY])
+        plain_ms = _time_ms(torch, lambda: uk.upconv_plain(x, wt, b, **kw))
+        up = x.permute(0, 3, 1, 2).repeat_interleave(2, 2).repeat_interleave(2, 3).contiguous()
+        lib_ms = _time_ms(torch, lambda: torch.nn.functional.conv2d(up, wt, b, 1, (k - 1) // 2))
+        del up
+        taps = uk.fold_window(k)[2] ** 2
+        nbytes = ((x.numel() + y.numel()) * 4 + len(uk.tap_phases(k)) * cin * cout * 4
+                  + (0 if last else 2 * cout * 4))
+        b_ms, b_by = bound(nbytes, 2 * 4 * taps * cin * cout * n * h * w, "float32")
+        u_ms, _ = bound(nbytes, 2 * k * k * cin * cout * y.shape[1] * y.shape[2] * n, "float32")
+        desc = f"{label} {shape}->{cout} k{k}"
+        log(f"upsample_conv {desc} via {uk.ENTRY}: max_abs {err:.3g} (tol {2e-5 * top:.3g}, "
+            f"2e-5 of max {top:.4g}) stats ok {stats_ok} kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms, profiler) plain {plain_ms:.4f} ms cuDNN conv of the upsampled "
+            f"input {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, folded) unfolded bound "
+            f"{u_ms:.4f} ms")
+        if not (err <= 2e-5 * top and stats_ok):
+            raise AssertionError(f"upsample_conv {desc}: max abs {err} > 2e-5 x {top} or "
+                                 f"statistics off")
+        out.append(dict(err=err, ms=ms, plain_ms=plain_ms, dtype=torch.float32, bound_ms=b_ms,
+                        bound_by=b_by, unfolded_bound_ms=u_ms, library_ms=lib_ms,
+                        device_ms=dev_ms, entry=uk.ENTRY, shape=desc))
+    spec = arch_dsl.parse_arch("canonical")
+    params = stylizer.init_params(torch.Generator(device="cuda").manual_seed(17), spec,
+                                  device="cuda")
+    canon = {}
+    face = -(-VR_FACE // 4) * 4                     # the stride-padded face
+    for where, (h, w) in (("1080p", SIZE_1080), ("face", (face, face))):
+        x = torch.randn(1, h, w, 7, generator=g).cuda() * 60
+        canon[where] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, res = x.to(dtype), {}
+
+            def run(fused):
+                res[fused] = stylizer.apply(params, spec, xd, fused=fused)
+            with torch.no_grad():
+                before = k6.launches
+                run(True)
+                launched = k6.launches - before
+                run(False)
+                diff = (res[True].float() - res[False].float()).abs() / 255.0
+                t_k = _time_ms(torch, lambda: run(True), n=8)
+                t_p = _time_ms(torch, lambda: run(False), n=8)
+            f32 = dtype == torch.float32
+            err, tol = (diff.max().item(), 1e-3) if f32 else (diff.mean().item(), 1e-2)
+            want_n = 2 if f32 else 0
+            log(f"canonical net {where} ({h}x{w}) {_dname(torch, dtype)}: K6 launches "
+                f"{launched} (expected {want_n}); kernel path {t_k:.3f} ms, plain cuDNN path "
+                f"{t_p:.3f} ms; {'max' if f32 else 'mean'}-abs/255 {err:.3g} (tol {tol:g})")
+            if launched != want_n or not err <= tol:
+                raise AssertionError(f"canonical net {where} {dtype}: K6 launches {launched} "
+                                     f"!= {want_n} or kernel vs plain path {err} > {tol}")
+            canon[where][_dname(torch, dtype)] = {"launches": launched, "ms": t_k,
+                                                  "plain_ms": t_p, "err": err}
+    return out, canon
 
 
 def block_conv_case(torch, out, x, wt, b, relu, same, where):
@@ -1033,9 +1148,10 @@ def run_main_path(torch, workdir, k1):
     # per frame: K3 3 launches (layers 0-2), K2 2 per residual block (5);
     # per pair: K1 once for the engine's prior warp, 3 feature warps per
     # flow direction (pyramid levels 2, 1, 0), once for the consistency
-    # check's sample
+    # check's sample; K6 none: the demo model upsamples by learned full
+    # convs, which the folded upsample conv does not take
     expect = {"front_conv": 3 * n, "res_chain_conv": 10 * n, "warp_banded": pairs * (1 + 6 + 1),
-              "conv3x3": 0, "strip_warp": 0}
+              "conv3x3": 0, "strip_warp": 0, "upsample_conv": 0}
     counted, routes, k1_routes = {}, {}, {}
     fps = {}
     for dtype in ("float32", "bfloat16"):
@@ -1208,7 +1324,7 @@ def run_vr_path(torch, workdir, k1):
     # K1 6 temporal warps, 6 feature warps (3 pyramid levels x 2
     # directions, the 6 faces batched) and 6 consistency samples
     expect = {"strip_warp": 6 * n + 4, "front_conv": 18 * n, "res_chain_conv": 60 * n,
-              "warp_banded": 18 * (n - 1), "conv3x3": 0}
+              "warp_banded": 18 * (n - 1), "conv3x3": 0, "upsample_conv": 0}
     expect_k5 = {"fav_strip_warp": 4, "fav_strip_warp_sum": 6 * n}
     counted, routes, fps = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
@@ -1450,7 +1566,8 @@ def run_reuse_and_scale(torch, workdir, k1):
     # K1: the provider's 7 per pair, the prior warp per step, the delta warp
     # per reuse frame
     expect = {"front_conv": 3, "res_chain_conv": 10 * (1 + keys),
-              "warp_banded": 7 * pairs + pairs + reuse, "conv3x3": 0, "strip_warp": 0}
+              "warp_banded": 7 * pairs + pairs + reuse, "conv3x3": 0, "strip_warp": 0,
+              "upsample_conv": 0}
     prefix = os.path.join(workdir, "reuse", "o")
     opt = dataclasses.replace(_options(pattern, prefix, "float32", n), feature_reuse=k)
     _drive(torch, dataclasses.replace(opt, num_frames=4))        # warm-up
@@ -1648,7 +1765,7 @@ def run_eval_path(torch, workdir, k1, smi):
     launches = {name: k.launches for name, k in kernels.items()}
     k1.check(kernels["warp_banded"], "eval path")
     expect = {"front_conv": 3 * n, "res_chain_conv": 10 * n, "warp_banded": (n - 1) * 8,
-              "conv3x3": 0, "strip_warp": 0}
+              "conv3x3": 0, "strip_warp": 0, "upsample_conv": 0}
     log(f"eval path float32: {len(results)} frames {SIZE_1080} with --evaluate in "
         f"{secs:.3f} s (host clock), launches {launches}, expected {expect}")
     if len(results) != n or launches != expect:
@@ -1810,7 +1927,7 @@ def run_flow_file_paths(torch, workdir, k1, smi):
     launches = {name: k.launches for name, k in kernels.items()}
     k1.check(kernels["warp_banded"], "file flow")
     expect = {"front_conv": 3 * n, "res_chain_conv": 10 * n, "warp_banded": n - 1,
-              "conv3x3": 0, "strip_warp": 0}
+              "conv3x3": 0, "strip_warp": 0, "upsample_conv": 0}
     log(f"stylize CLI on make_opt_flow's files, float32: {len(results)} frames in {secs:.3f} s, "
         f"launches {launches}, expected {expect}")
     if (len(results) != n or launches != expect
@@ -1868,7 +1985,7 @@ def run_flow_file_paths(torch, workdir, k1, smi):
     launches = {name: k.launches for name, k in kernels.items()}
     k1.check(kernels["warp_banded"], "VR --evaluate")
     expect = {"strip_warp": 6 * nv + 4, "front_conv": 18 * nv, "res_chain_conv": 60 * nv,
-              "warp_banded": 18 * (nv - 1), "conv3x3": 0}
+              "warp_banded": 18 * (nv - 1), "conv3x3": 0, "upsample_conv": 0}
     series, means = _eval_file(evfile)
     log(f"VR --evaluate float32: {faces_done} faces, launches {launches}, expected {expect}; "
         f"series {[[round(v, 5) for v in s] for s in series]}, means {means}")
@@ -2725,7 +2842,7 @@ def run_serving(torch, counts, smi):
     frames, top = SERVE_FRAMES, max(counts)
     clips = [pan_frames(SERVE_SEED + s, frames, *SIZE_1080, PAN_1080) for s in range(2 * top)]
     want = {"warp_banded": 8 * (frames - 1), "res_chain_conv": 10 * frames,
-            "front_conv": 3 * frames, "conv3x3": 0, "strip_warp": 0}
+            "front_conv": 3 * frames, "conv3x3": 0, "strip_warp": 0, "upsample_conv": 0}
     out = {}
     for dname in ("float32", "bfloat16"):
         top_devs = [torch.device("cuda", i) for i in range(top)]
@@ -3360,6 +3477,20 @@ def main() -> int:
                               **figures(b16)}}
                 for i, (f32, b16) in enumerate(zip(per[torch.float32], per[torch.bfloat16]))]
         rows.append(row)
+    # K6: float32 only (bfloat16 keeps the layer-by-layer path); its launches
+    # in the main path's float32 run (none: the demo model's upsamples are
+    # learned) and in the canonical net's stylizer, a call at 1080p and on a
+    # face; its cases at the canonical tail's four shapes
+    k6, cases = kernels["upsample_conv"], res["upsample_conv"]
+    rows.append({"name": "upsample_conv", "route": "cuda", "source": k6.source,
+                 "replaces": k6.replaces, "entry": cases[0]["entry"],
+                 "launches": counted["float32"]["upsample_conv"],
+                 "canonical": res["canonical_tail"],
+                 "max_abs_err": max(c["err"] for c in cases), **figures(cases[0]),
+                 "cases": [{"shape": c["shape"], "max_abs_err": c["err"],
+                            "unfolded_bound_ms": c["unfolded_bound_ms"], **figures(c)}
+                           for c in cases],
+                 "bfloat16": {"route": "layer by layer (cuDNN)"}})
     log(f"fps 1080p float32 {fps['float32']:.3f} bfloat16 {fps['bfloat16']:.3f}")
     log(f"fps VR {VR_FACE}^2 faces float32 {vr_fps['float32']:.3f} "
         f"({vr_fps['float32_no_png']:.3f} without PNG) bfloat16 {vr_fps['bfloat16']:.3f} "

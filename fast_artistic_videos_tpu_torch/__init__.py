@@ -16,7 +16,9 @@ tensor permuted to NCHW costs no copy) and parameters are OIHW tensors.
 Every Pallas kernel of the JAX package (K1-K5: the banded warp, the
 residual-chain conv, the front conv, the block conv and the VR strip warp)
 has a hand-written CUDA kernel for Hopper under ``csrc/`` (built at first
-use by ``ops/_build.py``). Each kernel wrapper runs its plain PyTorch
+use by ``ops/_build.py``), and one kernel replaces no Pallas kernel (K6:
+the stylizer's nearest 2x upsample folded into the conv after it). Each
+kernel wrapper runs its plain PyTorch
 version for a CPU tensor and launches the kernel, or raises, for a CUDA
 tensor — there is no fallback. Library entry points run on the card
 unless the caller passes ``device="cpu"`` (``core/device.py``).

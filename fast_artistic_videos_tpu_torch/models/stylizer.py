@@ -19,12 +19,18 @@ Two execution paths with the same math:
     every other 3x3 block conv at widths that are multiples of 128 through
     the block conv kernel (``ops.conv_kernel``, K4), the counterpart of
     ``apply(pallas_conv=True)``: in practice the residual blocks of a batch
-    larger than one, which the chain does not take. The kernel path is the
-    default for CUDA tensors wherever the architecture allows it.
+    larger than one, which the chain does not take; and in float32 each
+    nearest 2x upsample with the zero-padded stride-1 conv after it through
+    the folded upsample conv kernel (``ops.upconv_kernel``, K6: the
+    canonical net's tail), the upsample's norm taken at low resolution and
+    applied with its ReLU in the kernel's prologue, the conv's norm
+    statistics (or the net's tanh) in its epilogue — the counterpart of the
+    JAX package's ``_folded_upsample_conv``. The kernel path is the default
+    for CUDA tensors wherever the architecture allows it.
 
-The JAX package's TPU-layout rewrites (phase-domain front, space-to-depth
-convs, folded upsample convs, phase io) are exact re-expressions of the
-same convs for the TPU's matrix unit and are not part of the port.
+The JAX package's other TPU-layout rewrites (phase-domain front,
+space-to-depth convs, phase io) are exact re-expressions of the same convs
+for the TPU's matrix unit and are not part of the port.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import device as device_mod
-from ..ops import conv_kernel, front_kernel, rblock_kernel
+from ..ops import conv_kernel, front_kernel, rblock_kernel, upconv_kernel
 from ..ops._conv_in import eff_affine
 from .arch_dsl import LayerSpec, ModelSpec, parse_arch
 
@@ -86,16 +92,23 @@ def _affine(x, es, eb):
     return (x.float() * es + eb).to(x.dtype)
 
 
-def instance_norm(x, scale, bias, eps: float = 1e-5):
-    """Instance norm with learned affine; float32 statistics, biased
-    variance (E[x^2] - E[x]^2, clamped at 0)."""
+def _instance_eff(x, scale, bias, eps: float = 1e-5):
+    """The instance norm's per-sample, per-channel (scale, bias) pair, each
+    (N, 1, 1, C): float32 statistics, biased variance (E[x^2] - E[x]^2,
+    clamped at 0)."""
     xf = x.float()
     mean = xf.mean(dim=(1, 2), keepdim=True)
     mean_sq = (xf * xf).mean(dim=(1, 2), keepdim=True)
     var = torch.clamp(mean_sq - mean * mean, min=0.0)
     es = torch.rsqrt(var + eps) * scale.float()
     eb = bias.float() - mean * es
-    return _affine(x, es, eb)
+    return es, eb
+
+
+def instance_norm(x, scale, bias, eps: float = 1e-5):
+    """Instance norm with learned affine; float32 statistics, biased
+    variance (E[x^2] - E[x]^2, clamped at 0)."""
+    return _affine(x, *_instance_eff(x, scale, bias, eps))
 
 
 def upsample_nearest(x, scale: int):
@@ -106,9 +119,10 @@ def shave(x, s: int):
     return x[:, s:-s, s:-s, :]
 
 
-def _norm_apply(x, p, use_instance_norm: bool):
+def _norm_eff(x, p, use_instance_norm: bool):
+    """The norm's (scale, bias) pair, broadcastable against x (N, H, W, C)."""
     if use_instance_norm:
-        return instance_norm(x, p["scale"], p["bias"])
+        return _instance_eff(x, p["scale"], p["bias"])
     # batch norm: stored running statistics when the checkpoint has them,
     # batch statistics otherwise
     if "running_mean" in p:
@@ -120,7 +134,11 @@ def _norm_apply(x, p, use_instance_norm: bool):
         var = xf.var(dim=(0, 1, 2), unbiased=False)
     es = torch.rsqrt(var + 1e-5) * p["scale"].float()
     eb = p["bias"].float() - mean * es
-    return _affine(x, es, eb)
+    return es, eb
+
+
+def _norm_apply(x, p, use_instance_norm: bool):
+    return _affine(x, *_norm_eff(x, p, use_instance_norm))
 
 
 def _block_conv(h, w, b, pad: int, kernel: bool):
@@ -338,6 +356,38 @@ def fused_res_chain(params, x, idxs, pre_eff=None, pre_relu: bool = False):
     return out[None]
 
 
+def upsample_conv(params, spec: ModelSpec, i: int, x):
+    """Layers i (a nearest 2x upsample, then its norm and ReLU) and i + 1 (a
+    stride-1 zero-padded conv, then its norm and ReLU, or the net's tanh when
+    it is the last layer) through kernel K6, one launch at x's resolution.
+    A nearest upsample keeps each channel's statistics, so the upsample's
+    norm is taken on x and fused with its ReLU into the launch's prologue;
+    an instance norm after the conv takes its statistics from the launch's
+    epilogue. x: (N, H, W, C) float32 -> (N, 2H, 2W, Cout)."""
+    up, conv = spec.layers[i], spec.layers[i + 1]
+    use_in = spec.use_instance_norm
+    n, c = x.shape[0], x.shape[-1]
+    eff = None
+    if up.norm_after:
+        es, eb = _norm_eff(x, params[f"layer{i:02d}_norm"], use_in)
+        eff = torch.stack([es.expand(n, 1, 1, c).reshape(n, c),
+                           eb.expand(n, 1, 1, c).reshape(n, c)], dim=1)
+    last = i + 1 == len(spec.layers) - 1
+    want_stats = conv.norm_after and use_in
+    p = params[f"layer{i + 1:02d}"]
+    y = upconv_kernel.upconv(x.contiguous(), p["w"], p["b"], eff=eff, relu=up.relu_after,
+                             stats=want_stats,
+                             tanh_scale=spec.tanh_constant if last else None)
+    if want_stats:
+        y, st = y
+        nrm = params[f"layer{i + 1:02d}_norm"]
+        e = eff_affine(st, nrm["scale"], nrm["bias"], y.shape[1] * y.shape[2])
+        y = _affine(y, e[:, 0, None, None, :], e[:, 1, None, None, :])
+    elif conv.norm_after:
+        y = _norm_apply(y, params[f"layer{i + 1:02d}_norm"], use_in)
+    return torch.relu(y) if conv.relu_after else y
+
+
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
@@ -353,11 +403,13 @@ def apply(params: Params, spec: ModelSpec, x, *, dtype=None, stop_after=None,
     the activation after layer i.
 
     fused: route layers 0-2 and the residual chain through kernels K3 and
-    K2, and the other 3x3 block convs whose widths are multiples of 128
-    through kernel K4 (one launch per conv for the whole batch), where the
-    architecture allows it. None = on for CUDA tensors, off for CPU
-    tensors; True on a CPU tensor runs the kernels' plain versions (the CPU
-    tests use that to check the wiring); False runs PyTorch ops only."""
+    K2, the other 3x3 block convs whose widths are multiples of 128
+    through kernel K4 (one launch per conv for the whole batch), and in
+    float32 each nearest 2x upsample with the conv after it through kernel
+    K6 (``upconv_kernel.upconv_route``), where the architecture allows it.
+    None = on for CUDA tensors, off for CPU tensors; True on a CPU tensor
+    runs the kernels' plain versions (the CPU tests use that to check the
+    wiring); False runs PyTorch ops only."""
     if dtype is not None:
         x = x.to(dtype)
     if fused is None:
@@ -393,11 +445,21 @@ def apply(params: Params, spec: ModelSpec, x, *, dtype=None, stop_after=None,
         if pre_relu:
             x = torch.relu(x)
         pre_eff, pre_relu = None, False
+    last = len(spec.layers) - 1
+    folded = -1                       # the conv a K6 launch took with its upsample
     for i, layer in enumerate(spec.layers):
-        if i < start:
+        if i < start or i == folded:
             continue
         if stop_after is not None and i > stop_after:
             return x
+        if (i < last and (stop_after is None or stop_after > i)
+                and upconv_kernel.upconv_route(x.dtype, fused, layer, spec.layers[i + 1],
+                                               x.shape[-1])):
+            x = upsample_conv(params, spec, i, x)
+            if i + 1 == last:
+                return x                  # the kernel applied the net's tanh
+            folded = i + 1
+            continue
         if chain and i in chain:
             if i == chain[0]:
                 x = fused_res_chain(params, x, chain, pre_eff=pre_eff,

@@ -39,6 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of every entry point (argtypes, the stream last); all return
 # int (cudaError_t)
 SIGNATURES = {
@@ -51,6 +52,7 @@ SIGNATURES = {
     "fav_conv_tc": [_P] * 8 + [_I] * 8 + [_P],
     "fav_front_tc": [_P] * 6 + [_I] * 8 + [_P],
     "fav_front_f32": [_P] * 6 + [_I] * 8 + [_P],
+    "fav_upconv_f32": [_P] * 6 + [_I] * 8 + [_F, _P],
 }
 
 

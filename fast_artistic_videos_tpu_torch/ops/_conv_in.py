@@ -309,10 +309,11 @@ def _conv_in_card(kernel: Kernel, x, w, b, stride: int, pad: int, eff, relu: boo
 
 
 def eff_affine(stats, scale, bias, count: int, eps: float = 1e-5):
-    """Instance-norm statistics -> per-channel (scale, bias) pair,
-    normalized = eff[0] * y + eff[1] (float32 stats, biased variance)."""
-    mean = stats[0] / count
-    var = torch.clamp(stats[1] / count - mean * mean, min=0.0)
+    """Instance-norm statistics (..., 2, C) -> per-channel (scale, bias)
+    pair (..., 2, C), normalized = eff[..., 0, :] * y + eff[..., 1, :]
+    (float32 stats, biased variance)."""
+    mean = stats[..., 0, :] / count
+    var = torch.clamp(stats[..., 1, :] / count - mean * mean, min=0.0)
     es = torch.rsqrt(var + eps) * scale.float()
     eb = bias.float() - mean * es
-    return torch.stack([es, eb])
+    return torch.stack([es, eb], dim=-2)

@@ -30,7 +30,7 @@ The spans, by layer: ``pipeline.prefetch_wait`` and ``pipeline.writer_wait``
 ``pool.upload`` (``video.serving``), ``flow`` and ``flow.band_wait``
 (``flow.provider``), ``engine.step`` (``video.engine``'s public steps),
 ``stylizer`` (the stylizer's forward), ``vr.prior``, ``vr.blend`` and
-``vr.outputs`` (``video.driver_vr``), and ``kernel.K1`` to ``kernel.K5``
+``vr.outputs`` (``video.driver_vr``), and ``kernel.K1`` to ``kernel.K6``
 (each hand-written kernel's Python entry, on a card only).
 """
 

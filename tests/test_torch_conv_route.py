@@ -157,7 +157,7 @@ def test_conv_route_covers_the_stylizer_widths():
 
 def _c_entries():
     """{name: [kind, ...]} of every extern "C" function in csrc/*.cu, kind
-    "p" for a pointer and "i" for an int."""
+    "p" for a pointer, "i" for an int and "f" for a float."""
     out = {}
     for path in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))):
         with open(path) as f:
@@ -170,6 +170,8 @@ def _c_entries():
                     kinds.append("p")
                 elif re.match(r"^(const\s+)?int\s+\w+$", arg):
                     kinds.append("i")
+                elif re.match(r"^(const\s+)?float\s+\w+$", arg):
+                    kinds.append("f")
                 else:
                     raise AssertionError(f"{m.group(1)}: unexpected argument {arg!r}")
             out[m.group(1)] = kinds
@@ -180,11 +182,11 @@ def test_every_c_entry_has_a_matching_signature():
     entries = _c_entries()
     assert {"fav_conv_tc", "fav_front_tc", "fav_conv_in", "fav_conv3x3_f32", "fav_front_f32",
             "fav_strip_warp", "fav_strip_warp_sum", "fav_warp_banded",
-            "fav_warp_banded_vec"} <= set(entries)
+            "fav_warp_banded_vec", "fav_upconv_f32"} <= set(entries)
     assert set(entries) == set(_build.SIGNATURES)
+    kind = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
     for name, kinds in entries.items():
-        bound = ["p" if t is ctypes.c_void_p else "i" if t is ctypes.c_int else "?"
-                 for t in _build.SIGNATURES[name]]
+        bound = [kind.get(t, "?") for t in _build.SIGNATURES[name]]
         assert bound == kinds, name
         assert kinds[-1] == "p", f"{name}: the stream comes last"
 

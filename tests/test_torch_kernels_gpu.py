@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 banded warp, K2 chain conv, K3 front conv,
-K4 block conv, K5 strip warp) against their plain PyTorch versions on a
-card, the stylizer's kernel paths (batch 1: K3 + K2; batch > 1: K4)
-against its plain (cuDNN) path, and the trainer's float32 step and
+K4 block conv, K5 strip warp, K6 folded upsample conv) against their plain
+PyTorch versions on a card, the stylizer's kernel paths (batch 1: K3 + K2;
+batch > 1: K4; float32 upsample tails: K6) against its plain (cuDNN) path, and the trainer's float32 step and
 optimizer updates as the kernels see them. Needs a CUDA card: every test skips
 without one. This file imports no jax, so on the card host it runs alone:
 
@@ -22,7 +22,7 @@ from fast_artistic_videos_tpu_torch.models import arch_dsl, checkpoint, registry
 from fast_artistic_videos_tpu_torch.ops import gram
 from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel, front_kernel, rblock_kernel
 from fast_artistic_videos_tpu_torch.ops import warp_kernel
-from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel
+from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel, upconv_kernel
 from fast_artistic_videos_tpu_torch.train import data as tdata
 from fast_artistic_videos_tpu_torch.train.trainer import Trainer, leaves
 from fast_artistic_videos_tpu_torch.video import driver_vr
@@ -473,6 +473,84 @@ def test_stylizer_batched_kernel_path_matches_plain_path(cuda):
     assert conv_kernel.KERNEL.routes.get("fav_conv3x3_f32", 0) == f32 + 10
     want = stylizer.apply(params, spec, x, fused=False)
     assert (got - want).abs().max().item() / 255.0 <= 1e-3
+
+
+@pytest.mark.parametrize("shape,k,cout,prologue,last", [
+    ((1, 270, 480, 128), 3, 64, True, False),     # 1080p, layer 9
+    ((1, 540, 960, 64), 9, 3, True, True),        # 1080p, layer 11 (tanh)
+    ((1, 231, 231, 128), 3, 64, True, False),     # a 922-px face (padded to 924)
+    ((1, 462, 462, 64), 9, 3, True, True),
+    ((2, 13, 37, 16), 3, 32, False, False),       # ragged tiles, two samples
+    ((3, 9, 133, 8), 9, 3, False, False),
+])
+def test_upconv_kernel_matches_plain(cuda, shape, k, cout, prologue, last):
+    """K6, one launch, against its plain version (cuDNN's float32 conv of
+    the folded weights): the same sums in another order, so float32
+    rounding; the statistics through float32 atomics."""
+    rng = np.random.default_rng(6)
+    n, _, _, cin = shape
+    x = _t(rng.standard_normal(shape), cuda)
+    w = _t(rng.standard_normal((cout, cin, k, k)) / (k * k * cin) ** 0.5, cuda)
+    b = _t(rng.standard_normal(cout) * 0.1, cuda)
+    eff = _t(np.stack([rng.random((n, cin)) + 0.5, rng.standard_normal((n, cin))], 1),
+             cuda) if prologue else None
+    kw = dict(eff=eff, relu=prologue, stats=not last, tanh_scale=150.0 if last else None)
+    k6 = upconv_kernel.KERNEL
+    before = (k6.launches, k6.routes.get(upconv_kernel.ENTRY, 0))
+    got = upconv_kernel.upconv(x, w, b, **kw)
+    assert (k6.launches, k6.routes.get(upconv_kernel.ENTRY, 0)) == (before[0] + 1,
+                                                                     before[1] + 1)
+    want = upconv_kernel.upconv_plain(x, w, b, **kw)
+    if last:
+        got, want = (got, None), (want, None)
+    y, wy = got[0], want[0]
+    assert y.shape == (n, 2 * shape[1], 2 * shape[2], cout)
+    assert (y - wy).abs().max().item() <= 2e-5 * wy.abs().max().item()
+    if not last:
+        assert torch.allclose(got[1], want[1], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("constant", [0.0, -2.5, 150.0])
+def test_upconv_kernel_applies_tanh_whatever_the_constants_sign(cuda, constant):
+    """K6's last-layer epilogue against its plain version for a tanh
+    constant of 0, below 0 and the usual 150: the tanh applies by its own
+    flag, not by the constant's sign."""
+    rng = np.random.default_rng(9)
+    x = _t(rng.standard_normal((1, 11, 19, 64)), cuda)
+    w = _t(rng.standard_normal((3, 64, 9, 9)) / (81 * 64) ** 0.5, cuda)
+    b = _t(rng.standard_normal(3), cuda)
+    got = upconv_kernel.upconv(x, w, b, tanh_scale=constant)
+    want = upconv_kernel.upconv_plain(x, w, b, tanh_scale=constant)
+    assert (got - want).abs().max().item() <= 2e-5 * max(abs(constant), 1.0)
+    if constant == 0.0:
+        assert not got.any()
+
+def test_stylizer_tail_takes_k6_and_never_synchronises(cuda):
+    """The canonical net in float32: two K6 launches a frame (layers 8-9
+    and 10-11), within max-abs/255 1e-3 of the cuDNN path; the tail, resumed
+    at layer 8 as the feature-reuse path does, runs under
+    ``set_sync_debug_mode("error")`` (folded weights built at the first
+    call), so a synchronisation added to the route later fails here."""
+    spec = arch_dsl.parse_arch("canonical")
+    params = stylizer.init_params(torch.Generator(device="cuda").manual_seed(3), spec,
+                                  device=cuda)
+    x = _t(np.random.default_rng(7).standard_normal((1, 60, 76, 7)) * 60, cuda)
+    k6 = upconv_kernel.KERNEL
+    with torch.no_grad():
+        before = k6.launches
+        got = stylizer.apply(params, spec, x)
+        assert k6.launches == before + 2
+        want = stylizer.apply(params, spec, x, fused=False)
+        assert (got - want).abs().max().item() / 255.0 <= 1e-3
+        feats = stylizer.apply(params, spec, x, stop_after=7)
+        stylizer.apply(params, spec, feats, start_at=8)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tail = stylizer.apply(params, spec, feats, start_at=8)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (tail - got).abs().max().item() / 255.0 <= 1e-5   # atomics' order
 
 
 def test_kernels_launch_on_the_tensors_card(cuda):
