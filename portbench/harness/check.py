@@ -50,8 +50,9 @@ def drawn(seed: int, stream: int, every: int, cap: int) -> np.ndarray:
     return np.flatnonzero(bits)
 
 
-def reference_streams(cfg, params, flow_params, device):
-    """A factory of reference streams for the cell's geometry."""
+def reference_streams(cfg, params, flow, flow_params, device):
+    """A factory of reference streams for the cell's geometry, their flow
+    by the flow family `flow` (``reference/flow_<model>.py``)."""
     from ..reference import stylizer as net_ref
     from ..reference import video as vref
 
@@ -60,9 +61,9 @@ def reference_streams(cfg, params, flow_params, device):
     scale = float(cfg["flow"]["scale"])
     k = int(cfg["occlusions_min_filter"])
     if geo["kind"] == "cube_faces":
-        return lambda: vref.Faces(params, net, flow_params, scale, int(geo["face"]),
+        return lambda: vref.Faces(params, net, flow, flow_params, scale, int(geo["face"]),
                                   int(geo["overlap"]), k, device)
-    return lambda: vref.Stream2D(params, net, flow_params, scale, k)
+    return lambda: vref.Stream2D(params, net, flow, flow_params, scale, k)
 
 
 def _state_u8(state) -> np.ndarray:

@@ -20,7 +20,7 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -114,13 +114,15 @@ class Record:
 @dataclasses.dataclass
 class Job:
     """What an entry needs: the cell's configuration and traffic, its
-    seed's frames, the checkpoint written for the program, the devices and
-    whether this run is traced."""
+    seed's frames, the checkpoints for the program (the stylizer's, and
+    the flow's with its family's reader of the pool's ``flow_params``),
+    the devices and whether this run is traced."""
     config: dict
     traffic: dict
     pans: list
     checkpoint: str
     flow_weights: str
+    flow_params: Callable
     devices: List[torch.device]
     dtype: str
     trace: bool
@@ -372,7 +374,6 @@ class _Watcher(threading.Thread):
 
 
 def stream_pool(job: Job):
-    from fast_artistic_videos_tpu_torch.flow import estimator as flow_estimator
     from fast_artistic_videos_tpu_torch.models import checkpoint
     from fast_artistic_videos_tpu_torch.video.engine import quantize_u8
     from fast_artistic_videos_tpu_torch.video.serving import StreamPool
@@ -382,7 +383,7 @@ def stream_pool(job: Job):
     in_flight = int(tr["in_flight"])
     spec, params, _ = checkpoint.load_model(job.checkpoint, job.devices[0])
     pool = StreamPool(spec, params,
-                      flow_params=flow_estimator.load_params(job.flow_weights, job.devices[0]),
+                      flow_params=job.flow_params(job.flow_weights, job.devices[0]),
                       n_streams=n, devices=job.devices, dtype=job.dtype,
                       flow_scale=float(cfg["flow"]["scale"]))
     process = pool.process

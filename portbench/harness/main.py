@@ -55,6 +55,8 @@ class Context:
     flops_per_frame: float        # the model's operations per frame (reference)
     peak_flops: float             # the card's peak for the cell's precision
     cards: int
+    latency_ms: List[float] = dataclasses.field(default_factory=list)
+    # each frame landed inside the traced window: hand-over to landing
 
 
 def _percentile(values, q):
@@ -77,7 +79,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, devices, t_start: flo
     """Run `cell` once on `devices`; returns (result dict, faults)."""
     import torch
 
-    from ..reference import flow as flow_ref
     from ..reference import stylizer as net_ref
     from ..reference import vr_maps
     from . import check, entries, frames, spec, tracing, weights, work
@@ -89,7 +90,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, devices, t_start: flo
     faces = geo["kind"] == "cube_faces"
     h, w = (int(geo["face"]),) * 2 if faces else (int(geo["height"]), int(geo["width"]))
     n_pans = 6 if faces else int(tr.get("streams", 1))
-    flow_path = os.path.join(os.path.dirname(bench_dir), cfg["flow"]["weights"])
+    flow_model = spec.flow_model(cfg)
+    flow = spec.flow_reference(flow_model, bench_dir)
 
     net = net_ref.parse(cfg["arch"], int(cfg["in_channels"]))
     params = weights.draw(net, seed, devices[0])
@@ -97,6 +99,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, devices, t_start: flo
     try:
         ckpt = os.path.join(tmp, "stylizer.npz")
         weights.write_checkpoint(ckpt, params, cfg)
+        if cfg["flow"]["weights"] == "seed":
+            # the flow's weights from the seed, on a stream of the family's
+            # own, as the program's flow checkpoint
+            flow_path = os.path.join(tmp, "flow.npz")
+            flow.save(flow_path, flow.draw(seed, devices[0]))
+        else:
+            flow_path = os.path.join(os.path.dirname(bench_dir), cfg["flow"]["weights"])
         source = frames.Source(seed, max(h, w))
         pans = source.pans(n_pans, h, w, tr["pan"])
         every = int(tr["check"]["every"])
@@ -111,8 +120,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, devices, t_start: flo
         if faces:
             maps = vr_maps.border_maps(h, int(geo["overlap"]))
             vr = (h, [work.mapped_area(m) for m in maps])
-        job = entries.Job(cfg, tr, pans, ckpt, flow_path, devices, dtype, trace, rec,
-                          launches=tracing.Launches(vr) if trace else None)
+        job = entries.Job(cfg, tr, pans, ckpt, flow_path,
+                          spec.flow_program(flow_model, bench_dir).program_params,
+                          devices, dtype, trace, rec,
+                          launches=tracing.Launches(vr, bench_dir) if trace else None)
         state = entries.ENTRIES[tr["entry"]](job)
         gc.unfreeze()
         if rec.t0 is None:
@@ -140,14 +151,16 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, devices, t_start: flo
             job.profile = None
             _log(f"portbench: trace attribution {tr_obj.stats}")
             c0, c1 = rec.t0, rec.closed_at
-            flow_like = flow_ref.load_weights(flow_path, "cpu")
             ctx = Context(
                 trace=tr_obj,
                 landed=sum(1 for f in frames_all if f.landed is not None
                            and c0 <= f.landed <= c1),
                 process_ms=[ms for t, ms in job.process_ms if c0 <= t <= c1],
-                flops_per_frame=work.model_flops(net, params, flow_like, (h, w),
-                                                 6 if faces else 1, float(cfg["flow"]["scale"])),
+                latency_ms=[(f.landed - f.submitted) * 1e3 for f in frames_all
+                            if f.landed is not None and c0 <= f.landed <= c1],
+                flops_per_frame=work.model_flops(net, params, flow, flow.load(flow_path, "cpu"),
+                                                 (h, w), 6 if faces else 1,
+                                                 float(cfg["flow"]["scale"])),
                 peak_flops=work.PEAK_FLOPS[dtype], cards=len(devices))
             for name, read in spec.readers(cell.per_layer, bench_dir).items():
                 v = read(ctx)
@@ -169,8 +182,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, devices, t_start: flo
         if cuda:
             torch.cuda.empty_cache()
 
-        flow_params = flow_ref.load_weights(flow_path, devices[0])
-        make = check.reference_streams(cfg, params, flow_params, devices[0])
+        flow_params = flow.load(flow_path, devices[0])
+        make = check.reference_streams(cfg, params, flow, flow_params, devices[0])
         if faces:
             def frame_of(s, t):
                 return np.stack([p.frame(t) for p in pans])

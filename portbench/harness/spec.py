@@ -1,8 +1,11 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the root of
 the checkout, ``configs/<config>.json``, ``traffic/<mix>.json``,
-``metrics/<metric>.py`` and ``limits/<cell>.json`` under ``portbench/``.
-Adding a configuration, a traffic mix, a per-layer metric or a cell adds
-files and entries; no file of the harness changes.
+``metrics/<metric>.py``, ``limits/<cell>.json``, a configuration's flow
+family (``reference/flow_<model>.py`` and ``flows/<model>.py``) and the
+hand-written kernels' work counts (``kernels/<group>.py``) under
+``portbench/``. Adding a configuration, a traffic mix, a flow family, a
+kernel's count, a per-layer metric or a cell adds files and entries; no
+file of the harness changes.
 """
 
 from __future__ import annotations
@@ -54,17 +57,45 @@ def cell(name: str, root: str = ROOT, bench_dir: str = BENCH_DIR) -> Cell:
                 [m for m in b["per_layer"] if _applies(m, name)])
 
 
-def reader(metric: str, bench_dir: str = BENCH_DIR) -> Callable:
-    """``read(ctx)`` of metrics/<metric>.py."""
-    path = os.path.join(bench_dir, "metrics", f"{metric}.py")
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}", path)
+def _module(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str, bench_dir: str = BENCH_DIR) -> Callable:
+    """``read(ctx)`` of metrics/<metric>.py."""
+    return _module(os.path.join(bench_dir, "metrics", f"{metric}.py"),
+                   f"portbench_metric_{metric}").read
 
 
 def readers(metrics: List[dict], bench_dir: str = BENCH_DIR) -> Dict[str, Callable]:
     return {m["name"]: reader(m["name"], bench_dir) for m in metrics}
+
+
+def flow_model(config: dict) -> str:
+    """The configuration's flow family: ``flow.model``, else PWC-lite."""
+    return config["flow"].get("model", "pwclite")
+
+
+def flow_reference(model: str, bench_dir: str = BENCH_DIR):
+    """The reference's half of a flow family: reference/flow_<model>.py."""
+    return _module(os.path.join(bench_dir, "reference", f"flow_{model}.py"),
+                   f"portbench_flow_{model}")
+
+
+def flow_program(model: str, bench_dir: str = BENCH_DIR):
+    """The program's half of a flow family: flows/<model>.py."""
+    return _module(os.path.join(bench_dir, "flows", f"{model}.py"),
+                   f"portbench_flows_{model}")
+
+
+def kernels(bench_dir: str = BENCH_DIR) -> Dict[str, object]:
+    """{group: module} of kernels/<group>.py, by name."""
+    d = os.path.join(bench_dir, "kernels")
+    return {f[:-3]: _module(os.path.join(d, f), f"portbench_kernel_{f[:-3]}")
+            for f in sorted(os.listdir(d)) if f.endswith(".py")}
 
 
 def limits(cell_name: str, bench_dir: str = BENCH_DIR) -> Optional[dict]:

@@ -19,21 +19,17 @@ from collections import defaultdict
 
 import torch
 
-from . import work
+from . import spec, work
 
 WINDOW = "portbench.window"
 FLOW, STYLIZER, POOL = "flow", "stylizer", "pool.process"
 SPANS = (FLOW, STYLIZER, POOL)
 
-# the hand-written kernels by the symbol their device code carries; K2 and
-# K4 share theirs
-SYMBOL_GROUPS = ("warp_banded", "conv3x3_f32", "front_f32", "conv_tc", "front_tc",
-                 "conv_in_kernel", "strip_warp")
-
-
-def symbol_group(kernel_name: str):
-    for g in SYMBOL_GROUPS:
-        if g in kernel_name:
+def symbol_group(kernel_name: str, symbols):
+    """The group (a file of ``portbench/kernels/``) whose symbol
+    (``{group: SYMBOL}``) the device kernel's name carries, or None."""
+    for g, sym in symbols.items():
+        if sym in kernel_name:
             return g
     return None
 
@@ -77,38 +73,39 @@ class SpannedProvider:
 # kernel launches with their work
 # ---------------------------------------------------------------------------
 
-def _isz(t):
-    return t.element_size()
+def _owner(path: str):
+    """A module, or a class of one, by its dotted path."""
+    try:
+        return importlib.import_module(path)
+    except ModuleNotFoundError:
+        mod, _, attr = path.rpartition(".")
+        return getattr(importlib.import_module(mod), attr)
 
 
-def _dname(t):
-    return "bfloat16" if t.dtype == torch.bfloat16 else "float32"
-
-
-def _group(kernel: str, dtype: str) -> str:
-    if kernel == "K1":
-        return "warp_banded"
-    if kernel == "K5":
-        return "strip_warp"
-    if kernel == "K3":
-        return "front_tc" if dtype == "bfloat16" else "front_f32"
-    return "conv_tc" if dtype == "bfloat16" else "conv3x3_f32"
+def _on_card(args) -> bool:
+    return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
 
 
 class Launches:
-    """While ``recording()``: each launch of K1-K5 on a card through the
-    program's Python entries, as (symbol group, least seconds). The K5
-    entries are counted from the geometry the cell states (``vr``: face
-    and per-map strip areas)."""
+    """While ``recording()``: each launch on a card through the program's
+    Python entries that a file of ``portbench/kernels/`` names, as (its
+    group, least seconds). A group's file gives ``SYMBOL`` (what its device
+    code's name carries) and ``ENTRIES``: (owner's dotted path, attribute,
+    count), where ``count(vr, *args, **kwargs)`` of a call's arguments is
+    the launch's (flops, bytes, dtype), or None where the launch is another
+    group's. ``vr`` is the cell's face geometry (face and per-map strip
+    areas; None in 2D), from which K5's launches are counted."""
 
-    def __init__(self, vr=None):
+    def __init__(self, vr=None, bench_dir=None):
         self.items = []
         self._lock = threading.Lock()
         self.vr = vr
+        self.kernels = spec.kernels(bench_dir or spec.BENCH_DIR)
+        self.symbols = {g: mod.SYMBOL for g, mod in self.kernels.items()}
 
-    def _add(self, kernel, dtype, flops, nbytes):
+    def _add(self, group, flops, nbytes, dtype):
         with self._lock:
-            self.items.append((_group(kernel, dtype), work.least_seconds(nbytes, flops, dtype)))
+            self.items.append((group, work.least_seconds(nbytes, flops, dtype)))
 
     def by_group(self):
         out = defaultdict(lambda: [0, 0.0])
@@ -117,97 +114,33 @@ class Launches:
             out[g][1] += s
         return dict(out)
 
-    def _entries(self):
-        """(module, attribute, wrapper factory) of every entry recorded."""
-        def warp(fn):
-            def w(img, flow, band):
-                if img.is_cuda:
-                    self._add("K1", _dname(img), *work.warp_work(tuple(img.shape), _isz(img)))
-                return fn(img, flow, band)
-            return w
-
-        def chain(fn):
-            def w(x, wt, b, eff=None, pre_relu=False, skip=None, emit_input=False):
-                if x.is_cuda:
-                    h, wd, _ = x.shape
-                    self._add("K2", _dname(x), *work.conv_work(
-                        (1,) + tuple(x.shape), tuple(wt.shape), (h - 2, wd - 2), _isz(x),
-                        eff=eff is not None, skip=skip is not None, emit=emit_input))
-                return fn(x, wt, b, eff=eff, pre_relu=pre_relu, skip=skip,
-                          emit_input=emit_input)
-            return w
-
-        def front(fn):
-            def w(x, wt, b, stride, pad, eff=None, relu=False):
-                if x.is_cuda:
-                    h, wd, _ = x.shape
-                    k = wt.shape[2]
-                    ho, wo = (h + 2 * pad - k) // stride + 1, (wd + 2 * pad - k) // stride + 1
-                    self._add("K3", _dname(x), *work.conv_work(
-                        (1,) + tuple(x.shape), tuple(wt.shape), (ho, wo), _isz(x),
-                        eff=eff is not None))
-                return fn(x, wt, b, stride, pad, eff=eff, relu=relu)
-            return w
-
-        def block(pad):
-            def make(fn):
-                def w(x, wt, b, relu=False):
-                    if x.is_cuda:
-                        n, h, wd, _ = x.shape
-                        self._add("K4", _dname(x), *work.conv_work(
-                            tuple(x.shape), tuple(wt.shape), (h + 2 * pad - 2, wd + 2 * pad - 2),
-                            _isz(x), stats=False))
-                    return fn(x, wt, b, relu=relu)
-                return w
-            return make
-
-        out = [("fast_artistic_videos_tpu_torch.ops.warp_kernel", "warp_banded", warp),
-               ("fast_artistic_videos_tpu_torch.ops.rblock_kernel", "chain_conv", chain),
-               ("fast_artistic_videos_tpu_torch.ops.front_kernel", "same_conv", front),
-               ("fast_artistic_videos_tpu_torch.ops.conv_kernel", "conv3x3", block(1)),
-               ("fast_artistic_videos_tpu_torch.ops.conv_kernel", "conv3x3_valid", block(0))]
-        if self.vr is not None:
-            out += self._strip_entries()
-        return out
-
-    def _strip_entries(self):
-        from ..reference import video as vref
-
-        face, areas = self.vr
-
-        def prior(fn):
-            def w(obj, pos, segments, div):
-                if div.is_cuda:
-                    self._add("K5", "float32", *work.strip_prior_work(
-                        face, areas, vref.PRIOR_TERMS[pos], pos in (4, 5)))
-                return fn(obj, pos, segments, div)
-            return w
-
-        def blend(fn):
-            def w(obj, segments, gm, div):
-                if div.is_cuda:
-                    self._add("K5", "float32", *work.strip_blend_work(
-                        face, areas, vref.BLEND_TERMS))
-                return fn(obj, segments, gm, div)
-            return w
-
-        mod = importlib.import_module("fast_artistic_videos_tpu_torch.ops.strip_warp_kernel")
-        return [(mod.StripSet, "prior", prior), (mod.StripSet, "blend", blend)]
+    def _wrap(self, fn, counts):
+        def wrapped(*args, **kwargs):
+            if _on_card(args):
+                for group, count in counts:
+                    got = count(self.vr, *args, **kwargs)
+                    if got is not None:
+                        self._add(group, *got)
+            return fn(*args, **kwargs)
+        return wrapped
 
     @contextlib.contextmanager
     def recording(self):
+        entries = defaultdict(list)
+        for group, mod in self.kernels.items():
+            for owner, attr, count in mod.ENTRIES:
+                entries[(owner, attr)].append((group, count))
         saved = []
         try:
-            for owner, attr, make in self._entries():
-                if isinstance(owner, str):
-                    owner = importlib.import_module(owner)
+            for (path, attr), counts in entries.items():
+                owner = _owner(path)
                 fn = getattr(owner, attr, None)
                 if fn is None:
-                    print(f"portbench: {owner.__name__}.{attr} not found; its launches "
+                    print(f"portbench: {path}.{attr} not found; its launches "
                           f"are not counted", file=sys.stderr)
                     continue
                 saved.append((owner, attr, fn))
-                setattr(owner, attr, make(fn))
+                setattr(owner, attr, self._wrap(fn, counts))
             yield self
         finally:
             for owner, attr, fn in saved:
@@ -224,7 +157,7 @@ class Trace:
     (name, card, start, end, span), the spans by name and the kernels'
     launch record."""
 
-    def __init__(self, bounds, busy_s, events, spans, launches, idle_gaps, stats):
+    def __init__(self, bounds, busy_s, events, spans, launches, idle_gaps, stats, symbols):
         self.bounds = bounds           # (start_ns, end_ns) of the window
         self.window_s = (bounds[1] - bounds[0]) / 1e9
         self.busy_s = busy_s           # {card: seconds with an operation running}
@@ -233,6 +166,7 @@ class Trace:
         self.launches = launches       # {symbol group: [launches, least seconds]}
         self.idle_gaps = idle_gaps     # [(what the host did, seconds)]
         self.stats = stats             # how the attribution went, for stderr
+        self.symbols = symbols         # {kernel group: the symbol its device code carries}
 
 
 def _call(ev, name, default=None):
@@ -359,7 +293,7 @@ def read(prof, launches: Launches, cards: int) -> Trace:
         if a >= w0 and b <= w1:
             span_map[name].append((tid, a, b))
     return Trace((w0, w1), busy, events, dict(span_map), launches.by_group(),
-                 named, dict(stats))
+                 named, dict(stats), launches.symbols)
 
 
 def device_ops(trace: Trace, top: int = 10):
@@ -370,3 +304,29 @@ def device_ops(trace: Trace, top: int = 10):
         if b > w0 and a < w1:
             tot[n[:120]] += min(b, w1) - max(a, w0)
     return [[n, d / 1e9] for n, d in sorted(tot.items(), key=lambda kv: -kv[1])[:top]]
+
+
+def roofline(trace: Trace, groups):
+    """The least time of the work of the kernel groups' launches over their
+    device time in the traced window, in %. Records are matched to launches
+    by the symbol their device code carries; where the profiler kept more
+    or fewer records of a group than launches were made, that group's least
+    time is scaled by the records it kept. None without a launch of any of
+    `groups`."""
+    w0, w1 = trace.bounds
+    device_ns, records = {}, {}
+    for name, _, a, b, _ in trace.events:
+        g = symbol_group(name, trace.symbols)
+        if g is None or not (w0 <= a < w1):
+            continue
+        device_ns[g] = device_ns.get(g, 0) + (b - a)
+        records[g] = records.get(g, 0) + 1
+    least = busy = 0.0
+    for g, (launches, seconds) in trace.launches.items():
+        if g not in groups or g not in device_ns or not launches:
+            continue
+        least += seconds * records[g] / launches
+        busy += device_ns[g] / 1e9
+    if busy <= 0.0:
+        return None
+    return 100.0 * least / busy

@@ -1,7 +1,8 @@
 """The yardstick's arithmetic: the card's peaks, the least time a piece of
-work can take, the operations and bytes of each hand-written kernel's
-launch (K1-K5) counted from its shapes, and the model's operations per
-frame counted on the reference.
+work can take, the operations and bytes of the hand-written kernels'
+launches (K1-K5) counted from their shapes and arguments (the files of
+``portbench/kernels/`` name the entries and take these), and the model's
+operations per frame counted on the reference.
 
 Bytes count each input read once and each output written once, whatever a
 kernel reads again; operations are multiply-adds counted as two.
@@ -61,6 +62,44 @@ def conv_work(x_shape, w_shape, out_hw, itemsize: int, *, stats=True, eff=False,
     return flops, nbytes
 
 
+def _dname(t) -> str:
+    return "bfloat16" if t.dtype == torch.bfloat16 else "float32"
+
+
+def warp_launch(img, flow, band):
+    """K1 (``warp_kernel.warp_banded``): (flops, bytes, dtype)."""
+    return (*warp_work(tuple(img.shape), img.element_size()), _dname(img))
+
+
+def chain_launch(x, wt, b, eff=None, pre_relu=False, skip=None, emit_input=False):
+    """K2 (``rblock_kernel.chain_conv``) on one (H, W, Cin) frame, VALID:
+    (flops, bytes, dtype)."""
+    h, wd, _ = x.shape
+    return (*conv_work((1,) + tuple(x.shape), tuple(wt.shape), (h - 2, wd - 2),
+                       x.element_size(), eff=eff is not None, skip=skip is not None,
+                       emit=emit_input), _dname(x))
+
+
+def front_launch(x, wt, b, stride, pad, eff=None, relu=False):
+    """K3 (``front_kernel.same_conv``) on one (H, W, Cin) frame:
+    (flops, bytes, dtype)."""
+    h, wd, _ = x.shape
+    k = wt.shape[2]
+    ho, wo = (h + 2 * pad - k) // stride + 1, (wd + 2 * pad - k) // stride + 1
+    return (*conv_work((1,) + tuple(x.shape), tuple(wt.shape), (ho, wo), x.element_size(),
+                       eff=eff is not None), _dname(x))
+
+
+def block_launch(pad: int):
+    """K4 (``conv_kernel.conv3x3`` with pad 1, ``conv3x3_valid`` with 0) on
+    an (N, H, W, Cin) batch: its counter of (flops, bytes, dtype)."""
+    def count(x, wt, b, relu=False):
+        _, h, wd, _ = x.shape
+        return (*conv_work(tuple(x.shape), tuple(wt.shape), (h + 2 * pad - 2, wd + 2 * pad - 2),
+                           x.element_size(), stats=False), _dname(x))
+    return count
+
+
 def mapped_area(m: np.ndarray, sentinel: float = 99999.0) -> int:
     """The bounding box area of the pixels a static border map reaches."""
     mapped = np.all(np.abs(m) < sentinel / 2, axis=-1)
@@ -98,26 +137,19 @@ def _meta_tree(tree):
             for k, v in tree.items()}
 
 
-def model_flops(net, params_like, flow_like, frame_hw, n: int, flow_scale: float) -> int:
-    """Operations of one steady step of n synchronised streams by
-    FlopCounterMode: the stylizer on n frames at the stride-padded size,
-    the flow pyramid of n new frames and both refinement directions. The
-    reference runs on meta tensors: only shapes."""
+def model_flops(net, params_like, flow, flow_like, frame_hw, n: int, flow_scale: float) -> int:
+    """Operations of one steady step of n synchronised streams: the
+    stylizer on n frames at the stride-padded size by FlopCounterMode, on
+    meta tensors (only shapes), and the flow of n new frames and both
+    directions by the flow family's count (``flow.flops``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from ..reference import flow as flow_ref
     from ..reference import stylizer as net_ref
 
     h, w = frame_hw
     m = net.total_stride
     hp, wp = -(-h // m) * m, -(-w // m) * m
     p = _meta_tree(params_like)
-    fp = _meta_tree(flow_like)
-    hs, ws = flow_ref.scaled(h, w, flow_scale)
-    fh, fw = -(-hs // flow_ref.STRIDE) * flow_ref.STRIDE, -(-ws // flow_ref.STRIDE) * flow_ref.STRIDE
     with FlopCounterMode(display=False) as fc:
         net_ref.forward(p, net, torch.empty((n, hp, wp, net.in_channels), device="meta"))
-        feats = flow_ref.pyramid(fp, torch.empty((n, fh, fw, 3), device="meta"))
-        flow_ref.refine(fp, feats, feats)
-        flow_ref.refine(fp, feats, feats)
-    return int(fc.get_total_flops())
+    return int(fc.get_total_flops()) + flow.flops(flow_like, frame_hw, n, flow_scale)

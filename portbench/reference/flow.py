@@ -8,9 +8,10 @@ head), of the forward/backward consistency check of fast-artistic-videos'
 ``consistencyChecker.cpp`` (round trip, motion boundaries, structure term,
 strict bounds), and of the streaming provider around them (flow at a
 reduced scale, the warp band from the previous pair's signal, the mask
-upsampled by nearest neighbour and optionally eroded). Weights are the
-bundled ``flow_pwclite.npz`` (HWIO kernels), read here with numpy. It
-imports nothing of the program.
+upsampled by nearest neighbour and optionally eroded). The provider takes
+its estimator as a flow family (``reference/flow_<model>.py``; PWC-lite's,
+``flow_pwclite.py``, reads the bundled ``flow_pwclite.npz``, HWIO kernels,
+with numpy). It imports nothing of the program.
 """
 
 from __future__ import annotations
@@ -285,27 +286,29 @@ def consistency(flow1, flow2, image01, band: int, warp_limit: float, out_hw,
 
 
 class StreamingFlow:
-    """One stream's (or one batch of synchronised streams') flow: call it
+    """One stream's (or one batch of synchronised streams') flow by the
+    estimator of a flow family (``reference/flow_<model>.py``): call it
     with (N, H, W, 3) uint8 frames in playback order; it returns None for
     the first, else (backward flows (N, H, W, 2), certainties (N, H, W),
     engine band). The band of a pair comes from the previous pair's signal
     (its own maximum for the first pair), one bucket for the whole batch."""
 
-    def __init__(self, params, scale: float, erode: int = 0):
-        self.params, self.scale, self.erode = params, scale, erode
+    def __init__(self, family, params, scale: float, erode: int = 0):
+        self.family, self.params, self.scale, self.erode = family, params, scale, erode
         self._prev = None
         self._signal = None
 
     @torch.no_grad()
     def __call__(self, frames_u8):
         n, h, w = frames_u8.shape[:3]
-        feats = prep(self.params, frames_u8, self.scale)
+        est = self.family
+        feats = est.features(self.params, frames_u8, self.scale)
         prev, self._prev = self._prev, feats
         if prev is None:
             return None
-        hs, ws = scaled(h, w, self.scale)
-        low_ab = refine(self.params, feats, prev)[:, :hs, :ws]
-        low_ba = refine(self.params, prev, feats)[:, :hs, :ws]
+        hs, ws = est.scaled(h, w, self.scale)
+        low_ab = est.pair(self.params, feats, prev)[:, :hs, :ws]
+        low_ba = est.pair(self.params, prev, feats)[:, :hs, :ws]
         first = float(low_ab.abs().max()) if self._signal is None else self._signal
         warp_low = flow_band(first)
         band = flow_band(warp_low / self.scale) if self.scale != 1.0 else warp_low

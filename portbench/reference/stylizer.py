@@ -6,9 +6,13 @@ A frozen copy of the arithmetic of the published video network
 padding (one reflection pad ahead of the net, sized so that the output is
 as large as the input), zero-padded convs, VALID residual blocks, instance
 norm with float32 ``E[x^2] - E[x]^2`` statistics and eps 1e-5, nearest
-upsampling, ``tanh * 150``. Activations are NHWC at the boundary, NCHW
-inside. It imports nothing of the program; its parameters are the nested
-dict the benchmark draws (conv kernels OIHW, ``layerNN`` names).
+upsampling, ``tanh * 150``; and the rest of the architecture strings'
+grammar: learned upsampling (``uD``, ``fFsS-D``: a transposed conv with the
+output adjustment S - 1, its stored kernel pre-flipped) and non-residual
+blocks (``CD``: two VALID 3x3 convs, each with its norm and a ReLU).
+Activations are NHWC at the boundary, NCHW inside. It imports nothing of
+the program; its parameters are the nested dict the benchmark draws (conv
+kernels OIHW, ``layerNN`` names).
 """
 
 from __future__ import annotations
@@ -27,13 +31,15 @@ VGG_MEAN_BGR = (103.939, 116.779, 123.68)
 
 @dataclasses.dataclass(frozen=True)
 class Layer:
-    kind: str            # conv | res_block | upsample
+    kind: str            # conv | full_conv | conv_block | res_block | upsample
     out_channels: int
     ksize: int = 3
     stride: int = 1
     pad: int = 0
     scale: int = 1
+    out_adjust: int = 0  # a transposed conv's output adjustment
     norm_relu: bool = False
+    relu: bool = False   # a ReLU alone after the layer (C blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,26 +50,38 @@ class Net:
     total_stride: int    # frames are padded to a multiple of it
 
 
-_CONV = re.compile(r"^c(\d+)s(\d+)-(\d+)$")
+_CONV = re.compile(r"^([cf])(\d+)s(\d+)-(\d+)$")
 
 
 def parse(arch: str, in_channels: int = 7) -> Net:
-    """The tokens of the published architectures with reflect-start padding
-    (``cFsS-D``, ``dD``, ``RD``, ``UX``); every layer but blocks and the last
-    is followed by instance norm and ReLU."""
+    """The architecture strings' tokens with reflect-start padding
+    (``cFsS-D``, ``fFsS-D``, ``dD``, ``uD``, ``CD``, ``RD``, ``UX``); every
+    layer but blocks and the last is followed by instance norm and ReLU, a
+    C block but the last by a ReLU."""
     tokens = [t.strip() for t in arch.split(",") if t.strip()]
     layers: List[Layer] = []
     stride, shave, max_stride, ch = 1, 0, 1, in_channels
     for i, tok in enumerate(tokens):
         last = i == len(tokens) - 1
         m = _CONV.match(tok)
-        if m:
-            k, s, d = int(m.group(1)), int(m.group(2)), int(m.group(3))
+        if m and m.group(1) == "c":
+            k, s, d = int(m.group(2)), int(m.group(3)), int(m.group(4))
             layer = Layer("conv", d, k, s, (k - 1) // 2, norm_relu=not last)
             stride *= s
+        elif m:
+            k, s, d = int(m.group(2)), int(m.group(3)), int(m.group(4))
+            layer = Layer("full_conv", d, k, s, (k - 1) // 2, out_adjust=s - 1,
+                          norm_relu=not last)
+            stride //= s
         elif tok[0] == "d":
             layer = Layer("conv", int(tok[1:]), 3, 2, 1, norm_relu=not last)
             stride *= 2
+        elif tok[0] == "u":
+            layer = Layer("full_conv", int(tok[1:]), 3, 2, 1, out_adjust=1, norm_relu=not last)
+            stride //= 2
+        elif tok[0] == "C":
+            layer = Layer("conv_block", int(tok[1:]), relu=not last)
+            shave += 2 * stride
         elif tok[0] == "R":
             layer = Layer("res_block", int(tok[1:]))
             shave += 2 * stride
@@ -85,12 +103,12 @@ def param_shapes(net: Net):
     ch = net.in_channels
     for i, layer in enumerate(net.layers):
         name = f"layer{i:02d}"
-        if layer.kind == "conv":
+        if layer.kind in ("conv", "full_conv"):
             k = layer.ksize
             out += [(f"{name}/w", (layer.out_channels, ch, k, k), "conv"),
                     (f"{name}/b", (layer.out_channels,), "conv")]
             ch = layer.out_channels
-        elif layer.kind == "res_block":
+        elif layer.kind in ("conv_block", "res_block"):
             d = layer.out_channels
             for c in ("1", "2"):
                 out += [(f"{name}/conv{c}/w", (d, d, 3, 3), "conv"),
@@ -132,15 +150,22 @@ def forward(params, net: Net, x):
         name = f"layer{i:02d}"
         if layer.kind == "conv":
             h = _conv(h, params[name], layer.stride, layer.pad)
+        elif layer.kind == "full_conv":
+            p = params[name]
+            # the stored kernel is pre-flipped: flipped back, in and out swapped
+            h = F.conv_transpose2d(h, p["w"].flip(2, 3).transpose(0, 1), None, layer.stride,
+                                   layer.pad, layer.out_adjust) + p["b"].view(1, -1, 1, 1)
         elif layer.kind == "upsample":
             h = h.repeat_interleave(layer.scale, 2).repeat_interleave(layer.scale, 3)
         else:
             p = params[name]
             r = torch.relu(instance_norm(_conv(h, p["conv1"]), **p["norm1"]))
             r = instance_norm(_conv(r, p["conv2"]), **p["norm2"])
-            h = r + h[:, :, 2:-2, 2:-2]
+            h = r + h[:, :, 2:-2, 2:-2] if layer.kind == "res_block" else r
         if layer.norm_relu:
             h = torch.relu(instance_norm(h, **params[name + "_norm"]))
+        if layer.relu:
+            h = torch.relu(h)
     return _nhwc(torch.tanh(h) * TANH_CONSTANT)
 
 

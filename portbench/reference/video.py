@@ -75,12 +75,14 @@ class Stylize:
 
 
 class Stream2D:
-    """One 2D stream. ``step(frame_u8)`` takes the next (H, W, 3) uint8
-    frame as a tensor and returns its stylized uint8 frame."""
+    """One 2D stream, its flow by the flow family `flow`
+    (``reference/flow_<model>.py``). ``step(frame_u8)`` takes the next
+    (H, W, 3) uint8 frame as a tensor and returns its stylized uint8
+    frame."""
 
-    def __init__(self, params, net, flow_params, flow_scale: float, min_filter: int = 7):
+    def __init__(self, params, net, flow, flow_params, flow_scale: float, min_filter: int = 7):
         self.stylize = Stylize(params, net)
-        self.flow = flow_ref.StreamingFlow(flow_params, flow_scale, erode=min_filter)
+        self.flow = flow_ref.StreamingFlow(flow, flow_params, flow_scale, erode=min_filter)
         self.prev: Optional[torch.Tensor] = None
 
     @torch.no_grad()
@@ -159,14 +161,15 @@ def gather_warp(img, flow):
 
 
 class Faces:
-    """One 360° clip as six synchronised face streams. ``step(faces_u8)``
+    """One 360° clip as six synchronised face streams, their flow by the
+    flow family `flow`. ``step(faces_u8)``
     takes the next (6, H, W, 3) uint8 faces (in processing order) and
     returns the six blended uint8 faces."""
 
-    def __init__(self, params, net, flow_params, flow_scale: float, face: int,
+    def __init__(self, params, net, flow, flow_params, flow_scale: float, face: int,
                  overlap: int, min_filter: int = 7, device="cuda"):
         self.stylize = Stylize(params, net)
-        self.flow = flow_ref.StreamingFlow(flow_params, flow_scale, erode=0)
+        self.flow = flow_ref.StreamingFlow(flow, flow_params, flow_scale, erode=0)
         self.min_filter = min_filter
         maps = vr_maps.border_maps(face, overlap)
         self.maps = [torch.from_numpy(m).to(device) for m in maps]

@@ -20,6 +20,7 @@ sys.path.insert(0, ROOT)
 from portbench.harness import spec, weights  # noqa: E402
 from portbench.harness.main import run_cell  # noqa: E402
 from portbench.reference import flow as flow_ref  # noqa: E402
+from portbench.reference import flow_pwclite  # noqa: E402
 from portbench.reference import stylizer as net_ref  # noqa: E402
 
 FLOW = os.path.join(ROOT, "fast_artistic_videos_tpu", "assets", "flow_pwclite.npz")
@@ -72,7 +73,7 @@ def test_the_reference_flow_is_the_ports_streaming_provider():
     pan = frames.Source(SEED, 96, period=256).pans(1, 64, 96, (6, 3))[0]
     prov = StreamingFlowProvider(estimator.load_params(FLOW, "cpu"), device="cpu",
                                  flow_scale=0.5, erode_window=7)
-    ref = flow_ref.StreamingFlow(flow_ref.load_weights(FLOW, "cpu"), 0.5, erode=7)
+    ref = flow_ref.StreamingFlow(flow_pwclite, flow_ref.load_weights(FLOW, "cpu"), 0.5, erode=7)
     for t in range(4):
         f = torch.from_numpy(np.ascontiguousarray(pan.frame(t)))
         got, want = prov(f), ref(f[None])

@@ -128,12 +128,19 @@ def test_what_a_run_loads_holds_no_jax_and_no_jax_package():
         "import fast_artistic_videos_tpu_torch.cli.stylize_vr_video\n"
         "import fast_artistic_videos_tpu_torch.video.serving\n"
         "import fast_artistic_videos_tpu_torch.models.checkpoint\n"
-        "from portbench.harness import spec\n"
-        "[spec.reader(m['name']) for m in spec.benchmark()['per_layer']]")
+        "from portbench.harness import spec, tracing\n"
+        "[spec.reader(m['name']) for m in spec.benchmark()['per_layer']]\n"
+        "cfgs = [spec.cell(w['name']).config for w in spec.benchmark()['workloads']]\n"
+        "[spec.flow_program(spec.flow_model(c)) for c in cfgs]\n"
+        "[spec.flow_reference(spec.flow_model(c)) for c in cfgs]\n"
+        "with tracing.Launches().recording():\n"
+        "    pass")
     assert guard.found(mods) == []
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    mods = _modules_after("import portbench.reference.video, portbench.reference.flow\n"
-                          "import portbench.reference.stylizer, portbench.reference.vr_maps")
+    names = sorted(f[:-3] for f in os.listdir(os.path.join(BENCH, "reference"))
+                   if f.endswith(".py") and f != "__init__.py")
+    assert {"flow", "flow_pwclite", "stylizer", "video", "vr_maps"} <= set(names)
+    mods = _modules_after("".join(f"import portbench.reference.{n}\n" for n in names))
     assert guard.found(mods, guard.FORBIDDEN_IN_REFERENCE) == []

@@ -2,8 +2,9 @@
 (``fast_artistic_videos_tpu_torch.utils.profiling``), against a synthetic
 window and synthetic spans: the window's filter, the division by frames or
 calls, the engine's self time less the stylizer, and nothing to read where
-no span is (or where the program records none). On the card: one K1 launch
-is one ``kernel.K1`` span and one count of ``Kernel.launches``."""
+no span is (or where the program records none); and the latency tail of
+the frames landed in the window. On the card: one K1 launch is one
+``kernel.K1`` span and one count of ``Kernel.launches``."""
 
 import os
 import sys
@@ -50,6 +51,15 @@ def test_driver_wait_sums_both_waits_per_frame(monkeypatch):
     spans += outside("pipeline.prefetch_wait")
     assert read("driver.wait_ms", spans, monkeypatch) == pytest.approx(10 / 4)
     assert read("driver.wait_ms", spans[3:], monkeypatch) is None
+
+
+def test_frame_latency_p95_is_the_tail_of_the_frames_landed_in_the_window():
+    lat = [float(v) for v in range(1, 101)]
+    c = Context(trace=types.SimpleNamespace(bounds=(W0, W1)), landed=100, process_ms=[],
+                flops_per_frame=0.0, peak_flops=1.0, cards=1, latency_ms=lat)
+    read = spec.reader("frame.latency_ms_p95")
+    assert read(c) == pytest.approx(95.05)
+    assert read(ctx()) is None          # nothing landed
 
 
 def test_pool_upload_per_process_call(monkeypatch):

@@ -12,6 +12,7 @@ sys.path.insert(0, ROOT)
 
 from portbench.harness import work  # noqa: E402
 from portbench.reference import flow as flow_ref  # noqa: E402
+from portbench.reference import flow_pwclite  # noqa: E402
 from portbench.reference import stylizer as net_ref  # noqa: E402
 from portbench.reference import vr_maps  # noqa: E402
 
@@ -78,14 +79,14 @@ def test_the_canonical_net_and_the_flow_by_the_counter_match_hand_counts():
             node = node.setdefault(p, {})
         node[parts[-1]] = torch.empty(shape, device="meta")
     flow_like = flow_ref.load_weights(FLOW, "cpu")
-    total = work.model_flops(net, like, flow_like, (1080, 1920), 1, 0.5)
+    total = work.model_flops(net, like, flow_pwclite, flow_like, (1080, 1920), 1, 0.5)
     net_only = _hand_canonical(1080, 1920)
     assert 0.62e12 < net_only < 0.70e12
     flow = total - net_only
     # the flow pyramid of one 544x960 frame and two refinements
     assert 0.05e12 < flow < 0.25e12
     # VR: six faces padded to 924 px
-    vr = work.model_flops(net, like, flow_like, (922, 922), 6, 0.5)
+    vr = work.model_flops(net, like, flow_pwclite, flow_like, (922, 922), 6, 0.5)
     assert vr - 6 * _hand_canonical(924, 924) > 0
 
 
