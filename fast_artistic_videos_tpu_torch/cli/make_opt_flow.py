@@ -27,7 +27,7 @@ import torch
 
 from ..core import device as device_mod
 from ..core import io
-from ..flow import consistency, estimator
+from ..flow import consistency, family
 
 
 def main(argv=None):
@@ -66,8 +66,7 @@ def main(argv=None):
 
         est = None
     else:
-        est = estimator.FlowEstimator(estimator.load_params(args.flow_model, device),
-                                      device=device)
+        est = family.load_estimator(args.flow_model, device=device)
 
     def load(path):
         return torch.from_numpy(io.load_image(path)).to(device)

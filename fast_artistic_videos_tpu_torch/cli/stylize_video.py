@@ -95,7 +95,7 @@ def flow_stage_device(flow_device: int, device: torch.device) -> torch.device:
 
 
 def build_flow_provider(opt: StylizeOptions, device):
-    from ..flow import estimator as flow_estimator
+    from ..flow import family
     from ..flow.provider import StreamingFlowProvider
 
     device = flow_stage_device(opt.flow_device, device)
@@ -107,12 +107,12 @@ def build_flow_provider(opt: StylizeOptions, device):
                     if (0 < opt.flow_scale < 1.0 and opt.scale_factor == 1.0
                         and opt.feature_reuse <= 1 and not opt.phase_resident)
                     else None)
+    est = family.load_estimator(
+        opt.flow_model, dtype=torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32,
+        device=device)
     return StreamingFlowProvider(
-        flow_estimator.load_params(opt.flow_model, device), device=device,
-        flow_scale=opt.flow_scale,
-        dtype=torch.bfloat16 if opt.dtype == "bfloat16" else None,
-        coarse_backward=opt.coarse_backward, fast_check=opt.fast_check,
-        erode_window=erode_window)
+        flow_estimator=est, flow_scale=opt.flow_scale, coarse_backward=opt.coarse_backward,
+        fast_check=opt.fast_check, erode_window=erode_window)
 
 
 def build_evaluator(opt: StylizeOptions, device):

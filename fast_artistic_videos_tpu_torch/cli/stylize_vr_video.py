@@ -69,14 +69,14 @@ def parse_options(argv=None):
 def build_flow_provider(opt: VROptions, device):
     """All 6 face flows of a frame in one batched step (the faces are
     independent temporal streams)."""
-    from ..flow import estimator as flow_estimator
+    from ..flow import family
     from ..flow.provider import BatchedStreamingFlowProvider
 
-    return BatchedStreamingFlowProvider(
-        flow_estimator.load_params(opt.flow_model, device), device=device,
-        flow_scale=opt.flow_scale,
-        dtype=torch.bfloat16 if opt.dtype == "bfloat16" else None,
-        fast_check=opt.fast_check)
+    est = family.load_estimator(
+        opt.flow_model, dtype=torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32,
+        device=device)
+    return BatchedStreamingFlowProvider(flow_estimator=est, flow_scale=opt.flow_scale,
+                                        fast_check=opt.fast_check)
 
 
 def build_evaluator(opt: VROptions, device):

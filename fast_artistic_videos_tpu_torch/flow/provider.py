@@ -20,7 +20,7 @@ import torch
 from ..core import device as device_mod
 from ..ops.warp import flow_band
 from ..utils import profiling
-from . import consistency, estimator
+from . import consistency, family
 
 
 class _LateScalar:
@@ -68,7 +68,7 @@ class StreamingFlowProvider:
         else:
             if params is None:
                 raise ValueError("need params or flow_estimator")
-            self.estimator = estimator.FlowEstimator(
+            self.estimator = family.make_estimator(
                 params, dtype=dtype or torch.float32, device=device)
         self.flow_scale = flow_scale
         self.coarse_backward = coarse_backward
@@ -147,7 +147,7 @@ class BatchedStreamingFlowProvider:
         else:
             if params is None:
                 raise ValueError("need params or flow_estimator")
-            self.estimator = estimator.FlowEstimator(
+            self.estimator = family.make_estimator(
                 params, dtype=dtype or torch.float32, device=device)
         self.use_structure = use_structure
         self.flow_scale = flow_scale

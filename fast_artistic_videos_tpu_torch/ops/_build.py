@@ -53,6 +53,7 @@ SIGNATURES = {
     "fav_front_tc": [_P] * 6 + [_I] * 8 + [_P],
     "fav_front_f32": [_P] * 6 + [_I] * 8 + [_P],
     "fav_upconv_f32": [_P] * 6 + [_I] * 8 + [_F, _P],
+    "fav_correlation_f32": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core import device as device_mod
-from ..flow import estimator as flow_estimator
+from ..flow import family
 from ..flow.provider import StreamingFlowProvider
 from ..models import stylizer
 from ..utils import profiling
@@ -53,7 +53,8 @@ class StreamPool:
 
     spec, params: the stylizer (``models.checkpoint.load_model``; params on
     any device, copied to each). flow_params: the flow estimator's
-    parameters (``flow.estimator.load_params``), or None when the caller
+    parameters (``flow.estimator.load_params``; either family,
+    ``flow.family``), or None when the caller
     passes flow and certainty to :meth:`process`. devices: see
     :func:`core.device.resolve_all` (default: every card; a CUDA
     device raises without one)."""
@@ -78,7 +79,7 @@ class StreamPool:
         self._providers: List[Optional[StreamingFlowProvider]] = [None] * n_streams
         if flow_params is not None:
             # one estimator per device, one stateful provider per stream
-            est = {dev: flow_estimator.FlowEstimator(
+            est = {dev: family.make_estimator(
                        stylizer.to_device(flow_params, dev),
                        dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
                        device=dev)

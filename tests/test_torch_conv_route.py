@@ -182,7 +182,7 @@ def test_every_c_entry_has_a_matching_signature():
     entries = _c_entries()
     assert {"fav_conv_tc", "fav_front_tc", "fav_conv_in", "fav_conv3x3_f32", "fav_front_f32",
             "fav_strip_warp", "fav_strip_warp_sum", "fav_warp_banded",
-            "fav_warp_banded_vec", "fav_upconv_f32"} <= set(entries)
+            "fav_warp_banded_vec", "fav_upconv_f32", "fav_correlation_f32"} <= set(entries)
     assert set(entries) == set(_build.SIGNATURES)
     kind = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
     for name, kinds in entries.items():

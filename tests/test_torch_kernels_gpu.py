@@ -1,8 +1,10 @@
 """The port's CUDA kernels (K1 banded warp, K2 chain conv, K3 front conv,
-K4 block conv, K5 strip warp, K6 folded upsample conv) against their plain
-PyTorch versions on a card, the stylizer's kernel paths (batch 1: K3 + K2;
-batch > 1: K4; float32 upsample tails: K6) against its plain (cuDNN) path, and the trainer's float32 step and
-optimizer updates as the kernels see them. Needs a CUDA card: every test skips
+K4 block conv, K5 strip warp, K6 folded upsample conv, K7 correlation)
+against their plain PyTorch versions on a card, the stylizer's kernel paths
+(batch 1: K3 + K2; batch > 1: K4; float32 upsample tails: K6) against its
+plain (cuDNN) path, FlowNet 2.0 against the benchmark's plain reference,
+and the trainer's float32 step and optimizer updates as the kernels see
+them. Needs a CUDA card: every test skips
 without one. This file imports no jax, so on the card host it runs alone:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -22,7 +24,7 @@ from fast_artistic_videos_tpu_torch.models import arch_dsl, checkpoint, registry
 from fast_artistic_videos_tpu_torch.ops import gram
 from fast_artistic_videos_tpu_torch.ops import _conv_in, conv_kernel, front_kernel, rblock_kernel
 from fast_artistic_videos_tpu_torch.ops import warp_kernel
-from fast_artistic_videos_tpu_torch.ops import strip_warp_kernel, upconv_kernel
+from fast_artistic_videos_tpu_torch.ops import correlation_kernel, strip_warp_kernel, upconv_kernel
 from fast_artistic_videos_tpu_torch.train import data as tdata
 from fast_artistic_videos_tpu_torch.train.trainer import Trainer, leaves
 from fast_artistic_videos_tpu_torch.video import driver_vr
@@ -909,3 +911,79 @@ def test_kernel_route_sees_the_weights_after_an_optimizer_step(cuda, dtype, tol)
         want = stylizer.apply(params, spec, x, dtype=dtype, fused=False)
     assert (y1.float() - y0.float()).abs().max().item() / 255.0 > 10 * tol
     assert (y1.float() - want.float()).abs().max().item() / 255.0 <= tol
+
+
+@pytest.mark.parametrize("shape,b_shift,sliced", [
+    ((2, 256, 72, 120), 1, True),     # FlowNetC at 1080p, flow at half scale: both directions
+    ((1, 256, 72, 120), 0, False),
+    ((1, 20, 13, 37), 0, False),      # maps narrower than the displacements
+    ((3, 64, 9, 133), 2, True),       # two column tiles, odd sizes
+    ((1, 256, 5, 3), 0, True),
+])
+def test_correlation_kernel_matches_plain(cuda, shape, b_shift, sliced):
+    """K7, one launch, against its plain version: the same products summed
+    over the channels in another order, so float32 rounding of a sum of C
+    terms (values near 1/sqrt(C) here); written into a channel slice of
+    FlowNetC's conv3_1 input, whose other channels it leaves alone."""
+    rng = np.random.default_rng(11)
+    n, c, h, w = shape
+    a, b = _t(rng.standard_normal(shape), cuda), _t(rng.standard_normal(shape), cuda)
+    buf = torch.full((n, 32 + correlation_kernel.CHANNELS, h, w), 7.0, device=cuda)
+    out = buf[:, 32:] if sliced else None
+    k7 = correlation_kernel.KERNEL
+    before = (k7.launches, k7.routes.get(correlation_kernel.ENTRY, 0))
+    got = correlation_kernel.correlation(a, b, out=out, b_shift=b_shift)
+    assert (k7.launches, k7.routes.get(correlation_kernel.ENTRY, 0)) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want = correlation_kernel.correlation_plain(a, b, b_shift=b_shift)
+    assert got.shape == (n, correlation_kernel.CHANNELS, h, w)
+    assert (got - want).abs().max().item() <= 2e-6
+    if sliced:
+        assert got.data_ptr() == buf[:, 32:].data_ptr()
+        assert bool((buf[:, :32] == 7.0).all())
+
+
+def test_correlation_kernel_raises_instead_of_falling_back(cuda):
+    a = torch.zeros(1, 8, 6, 6, device=cuda)
+    with pytest.raises(TypeError):
+        correlation_kernel.correlation(a.half(), a.half())
+    with pytest.raises(ValueError):                         # maps of two shapes
+        correlation_kernel.correlation(a, torch.zeros(1, 8, 6, 5, device=cuda))
+    with pytest.raises(ValueError):                         # an output of another dtype
+        correlation_kernel.correlation(
+            a, a, out=torch.zeros(1, correlation_kernel.CHANNELS, 6, 6, device=cuda).half())
+    with pytest.raises(ValueError):                         # maps on two cards
+        correlation_kernel.correlation(a, a.cpu())
+
+
+def test_flownet2_matches_the_reference_at_the_cell_shape(cuda):
+    """FlowNet 2.0 at the published widths on a 1080p pair at flow scale
+    0.5 (576x960 padded), both directions, against the benchmark's plain
+    reference (every layer per direction, the correlation as a shift loop)
+    on the card, both in float32 with TF32 off: cuDNN's algorithms and the
+    order of K7's sums part them by float32 rounding through 60 layers; the
+    bfloat16 convs miss the same bound."""
+    from fast_artistic_videos_tpu_torch.flow import flownet2
+    from portbench.reference import flow_flownet2 as ref
+
+    params = ref.draw(2 ** 31 + 19, cuda)
+    rng = np.random.default_rng(19)
+    base = rng.integers(0, 256, (1092, 1932, 3), dtype=np.uint8)
+    frames = torch.from_numpy(np.stack([base[6:1086, 6:1926], base[:1080, 12:1932]])).to(cuda)
+    est = flownet2.FlowNet2Estimator(params, device=cuda)
+    fa, fb = est.prep(frames[0], 0.5), est.prep(frames[1], 0.5)
+    assert fa.shape == (1, 3, 576, 960)
+    k7 = correlation_kernel.KERNEL.launches
+    full, low_ab, low_ba, _ = est.refine_pair(fa, fb, (1080, 1920), 0.5, with_lowres=True)
+    assert correlation_kernel.KERNEL.launches == k7 + 1
+    with torch.no_grad():
+        want_ab = ref.pair(params, fa, fb)[0, :540]
+        want_ba = ref.pair(params, fb, fa)[0, :540]
+    scale = want_ab.abs().max().item()
+    tol = 1e-4 * scale
+    assert (low_ab - want_ab).abs().max().item() <= tol
+    assert (low_ba - want_ba).abs().max().item() <= tol
+    assert full.shape == (1080, 1920, 2)
+    half = flownet2.FlowNet2Estimator(params, dtype=torch.bfloat16, device=cuda)
+    _, bf_ab, _, _ = half.refine_pair(fa, fb, (1080, 1920), 0.5, with_lowres=True)
+    assert (bf_ab - want_ab).abs().max().item() > tol
