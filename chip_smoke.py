@@ -316,8 +316,11 @@ class LaunchShapes:
     entries (`ENTRY_NAMES` of `MODULE`), here in the script and not in the
     package, for one run (the flow thread launches too, hence the lock);
     `check` holds that run's record against the kernel's own counters. A
-    subclass names the entries and the key, whose last item is the C entry
-    the launch takes."""
+    call made while the flow provider captures a step (`flow.graphs`)
+    launches once the graph before it has run, so its inputs hold no
+    values when the call is made: a later call of its key keeps them (the
+    step's replays call the entry again). A subclass names the entries and
+    the key, whose last item is the C entry the launch takes."""
 
     MODULE, ENTRY_NAMES = "", ()
 
@@ -334,6 +337,8 @@ class LaunchShapes:
     def recording(self):
         import importlib
 
+        import torch
+
         mod = importlib.import_module(self.MODULE)
         fns = {name: getattr(mod, name) for name in self.ENTRY_NAMES}
         self.run = {}
@@ -344,7 +349,8 @@ class LaunchShapes:
                     key = self.key(name, *args)
                     with self._lock:
                         self.run[key] = self.run.get(key, 0) + 1
-                        if key not in self.inputs:
+                        if key not in self.inputs and \
+                                not torch.cuda.is_current_stream_capturing():
                             self.inputs[key] = tuple(
                                 a.detach().clone() if hasattr(a, "detach") else a
                                 for a in args)
@@ -566,7 +572,7 @@ def check_recorded_warps(torch, res, k1):
     """Phase 3, continued after the main paths: K1 at each (shape, dtype,
     band) that phases 4, 6, 9, 11, 13 and 16 launched and phase 3's list lacks, on
     seeded random flows, then at every one of them on the inputs of its
-    first launch there."""
+    first launch there (kept by a call outside a graph capture)."""
     g = torch.Generator(device="cpu").manual_seed(4321)
     have = {(tuple(c["shape"]), _dname(torch, c["dtype"]), c["band"])
             for c in res["warp_banded"]}
@@ -579,6 +585,10 @@ def check_recorded_warps(torch, res, k1):
                    1e-5 if dname == "float32" else 2 ** -7)
     for key in sorted(k1.counts):
         shape, dname, band, _ = key
+        if key not in k1.inputs:
+            # called only while a step was captured: held above on seeded flows
+            log(f"K1 {key}: no main-path inputs kept (called only in graph captures)")
+            continue
         warp_cases(torch, g, res["warp_banded"], shape, band, dtypes[dname],
                    1e-5 if dname == "float32" else 2 ** -7, inputs=k1.inputs[key][:2])
 

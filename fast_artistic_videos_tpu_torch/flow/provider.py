@@ -9,6 +9,11 @@ only host traffic per step is the frame upload and one scalar read back a
 step late: the band-sizing signal (max |flow| over check-passing pixels)
 is copied into pinned memory without blocking and read when the next pair
 needs it, by which time the copy has long finished.
+
+On a card the step is replayed from CUDA graphs (``flow.graphs``), which
+providers on one estimator share: a few launches a step instead of
+thousands. The first frame and the first pair of a key run eagerly, and
+so does every step of FlowNet 2.0, which the card paces.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import torch
 from ..core import device as device_mod
 from ..ops.warp import flow_band
 from ..utils import profiling
-from . import consistency, family
+from . import consistency, family, flownet2
+from . import graphs as step_graphs
 
 
 class _LateScalar:
@@ -45,7 +51,112 @@ class _LateScalar:
         return float(self._host)
 
 
-class StreamingFlowProvider:
+class _Streaming:
+    """What both providers share: the estimator, what a stream carries from
+    step to step (the previous frame's features, the late band signal) and
+    the step itself, eager or replayed from CUDA graphs.
+
+    A step is the new frame's features (``_prep``) and both flows of the
+    pair against the previous frame's (``_refine``: part "pair"), the band
+    read, and the consistency check at that band (``_check``: part
+    ("check", band)). On a card the step replays those parts as graphs
+    shared by every provider on the estimator (``flow.graphs``); a key's
+    first frame and first pair run eagerly, which also warms cuDNN up
+    before any capture, and once its graphs exist a stream's first frame
+    (part "prep") and first pair replay too. On the CPU, and with FlowNet
+    2.0's estimator, every step is eager."""
+
+    def _setup(self, params, device, flow_estimator, dtype, flow_scale: float,
+               fast_check: bool) -> None:
+        if flow_estimator is not None:
+            self.estimator = flow_estimator
+        else:
+            if params is None:
+                raise ValueError("need params or flow_estimator")
+            self.estimator = family.make_estimator(
+                params, dtype=dtype or torch.float32, device=device)
+        self.flow_scale = flow_scale
+        self.fast_check = fast_check
+        self._prev_feats = None
+        self._pending: Optional[_LateScalar] = None
+        self.last_band = None
+        # the graphs of the key of the last step: held, so that the
+        # estimator's table keeps them while this provider may step again
+        self._held = None
+
+    def reset(self) -> None:
+        self._prev_feats = None
+        self._pending = None
+
+    def _engine_band(self, warp_low: int) -> int:
+        """The engine's warp band, at full resolution, for the bucket
+        `warp_low` at flow resolution."""
+        return flow_band(warp_low / self.flow_scale) if self.flow_scale != 1.0 else warp_low
+
+    def _band(self, flows) -> int:
+        """The band bucket at flow resolution; sets ``last_band``."""
+        # the band comes from the PREVIOUS pair's signal, whose copy has
+        # finished; only the first pair reads its own maximum
+        prev = self._pending.get() if self._pending is not None else float(flows[-1])
+        warp_low = flow_band(prev)
+        self.last_band = self._engine_band(warp_low)
+        return warp_low
+
+    def _pair(self, frames, prev_feats):
+        feats = self._prep(frames)
+        return feats, self._refine(frames, feats, prev_feats)
+
+    @torch.no_grad()
+    def _step(self, frames):
+        graphs = self._held = self._graphs(frames)
+        if graphs is None or (self._pending is None and not graphs.has("pair")):
+            return self._eager(frames)
+        with graphs.use():
+            return self._replayed(graphs, frames)
+
+    def _graphs(self, frames):
+        dev = self.estimator.device
+        # FlowNet 2.0's step stays eager: the card, not the host, sets its
+        # pace, and its networks' spans (flow.fn2.*) open only where their
+        # code runs
+        if dev.type != "cuda" or isinstance(self.estimator, flownet2.FlowNet2Estimator):
+            return None
+        card = torch.device("cuda", torch.cuda.current_device() if dev.index is None
+                            else dev.index)
+        key = (type(self).__name__, card, tuple(frames.shape), frames.dtype,
+               self.flow_scale) + self._settings()
+        return step_graphs.shared(self.estimator, key, card)
+
+    def _eager(self, frames):
+        feats = self._prep(frames)
+        prev_feats, self._prev_feats = self._prev_feats, feats
+        if prev_feats is None:
+            return None
+        flows = self._refine(frames, feats, prev_feats)
+        cert, rel_max = self._check(frames, flows, self._band(flows))
+        self._pending = _LateScalar(rel_max)
+        return self._result(flows[0], cert)
+
+    def _replayed(self, graphs, frames):
+        """The step from the graphs of its key; what it returns and keeps
+        is copied out of their static outputs."""
+        first = self._prev_feats is None
+        graphs.load(frames, None if first else self._prev_feats)
+        if first:
+            self._prev_feats = step_graphs.clone(
+                graphs.run("prep", lambda: self._prep(graphs.frames)))
+            return None
+        feats, flows = graphs.run("pair", lambda: self._pair(graphs.frames, graphs.prev))
+        self._prev_feats = step_graphs.clone(feats)
+        backward = flows[0].clone()
+        warp_low = self._band(flows)
+        cert, rel_max = graphs.run(("check", warp_low),
+                                   lambda: self._check(graphs.frames, flows, warp_low))
+        self._pending = _LateScalar(rel_max)
+        return self._result(backward, cert.clone())
+
+
+class StreamingFlowProvider(_Streaming):
     """Stateful: remembers the previous frame's pyramid; feed it frames in
     playback order. Call it with frame i ((H, W, 3) uint8 or [0, 1] tensor
     on the estimator's device); it returns (backward_flow_i, certainty_i)
@@ -63,71 +174,55 @@ class StreamingFlowProvider:
         accumulates in float32). flow_estimator: share one estimator
         between providers instead of building one from params on `device`
         (the card unless ``device="cpu"``)."""
-        if flow_estimator is not None:
-            self.estimator = flow_estimator
-        else:
-            if params is None:
-                raise ValueError("need params or flow_estimator")
-            self.estimator = family.make_estimator(
-                params, dtype=dtype or torch.float32, device=device)
-        self.flow_scale = flow_scale
+        self._setup(params, device, flow_estimator, dtype, flow_scale, fast_check)
         self.coarse_backward = coarse_backward
-        self.fast_check = fast_check
         self.erode_window = erode_window
         if erode_window and flow_scale >= 1.0:
             raise ValueError("erode_window needs flow_scale < 1.0")
-        self._prev_feats = None
-        self._pending: Optional[_LateScalar] = None
-        self.last_band = None
-
-    def reset(self) -> None:
-        self._prev_feats = None
-        self._pending = None
 
     @profiling.traced("flow")
-    @torch.no_grad()
     def __call__(self, frame) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-        feats = self.estimator.prep(frame, self.flow_scale)
-        prev_feats, self._prev_feats = self._prev_feats, feats
-        if prev_feats is None:
-            return None
+        return self._step(frame)
+
+    def _settings(self):
+        return self.coarse_backward, self.fast_check, self.erode_window
+
+    def _prep(self, frame):
+        return self.estimator.prep(frame, self.flow_scale)
+
+    def _refine(self, frame, feats, prev_feats):
+        """(backward, backward_low, forward_low, maxabs) at a reduced flow
+        scale, else (backward, forward, maxabs)."""
+        return self.estimator.refine_pair(
+            feats, prev_feats, tuple(frame.shape[:2]), self.flow_scale,
+            with_lowres=self.flow_scale != 1.0, coarse_backward=self.coarse_backward,
+            fast_check=self.fast_check)
+
+    def _check(self, frame, flows, warp_low: int):
         hw = tuple(frame.shape[:2])
-        lowres = self.flow_scale != 1.0
-        if lowres:
-            backward, bwd_low, fwd_low, maxabs = self.estimator.refine_pair(
-                feats, prev_feats, hw, self.flow_scale, with_lowres=True,
-                coarse_backward=self.coarse_backward, fast_check=self.fast_check)
-        else:
-            backward, forward, maxabs = self.estimator.refine_pair(
-                feats, prev_feats, hw, self.flow_scale,
-                coarse_backward=self.coarse_backward, fast_check=self.fast_check)
-        # the band comes from the PREVIOUS pair's signal, whose copy has
-        # finished; only the first pair reads its own maximum
-        prev = self._pending.get() if self._pending is not None else float(maxabs)
-        warp_low = flow_band(prev)
         # the check composes a round trip, so its banded sample needs twice
         # the engine warp's coverage
         band = 2 * warp_low
-        image = frame.to(backward.device)
-        if lowres:
-            self.last_band = flow_band(warp_low / self.flow_scale)
-            limit_low = self.last_band * bwd_low.shape[0] / hw[0]
-            cert, rel_max = consistency.consistency_mask_streaming(
+        image = frame.to(flows[0].device)
+        if self.flow_scale != 1.0:
+            _, bwd_low, fwd_low, _ = flows
+            limit_low = self._engine_band(warp_low) * bwd_low.shape[0] / hw[0]
+            return consistency.consistency_mask_streaming(
                 bwd_low, fwd_low, image, out_hw=hw, band=band,
                 erode_window=self.erode_window, warp_limit=limit_low,
                 with_rel_maxabs=True)
-        else:
-            self.last_band = warp_low
-            if image.dtype == torch.uint8:
-                image = image.float() / 255.0
-            cert, rel_max = consistency.consistency_mask(
-                backward, forward, image, band=band, warp_limit=float(warp_low),
-                with_rel_maxabs=True)
-        self._pending = _LateScalar(rel_max)
+        backward, forward, _ = flows
+        if image.dtype == torch.uint8:
+            image = image.float() / 255.0
+        return consistency.consistency_mask(
+            backward, forward, image, band=band, warp_limit=float(warp_low),
+            with_rel_maxabs=True)
+
+    def _result(self, backward, cert):
         return backward, cert
 
 
-class BatchedStreamingFlowProvider:
+class BatchedStreamingFlowProvider(_Streaming):
     """Streaming flow for N synchronized temporal streams (the VR driver's
     six cube faces, each its own stream, all advancing together): per step
     one batched pyramid, one batched refine of both directions and the
@@ -142,47 +237,35 @@ class BatchedStreamingFlowProvider:
     def __init__(self, params=None, device=device_mod.DEFAULT, use_structure: bool = True,
                  flow_scale: float = 1.0, flow_estimator=None, dtype=None,
                  fast_check: bool = False):
-        if flow_estimator is not None:
-            self.estimator = flow_estimator
-        else:
-            if params is None:
-                raise ValueError("need params or flow_estimator")
-            self.estimator = family.make_estimator(
-                params, dtype=dtype or torch.float32, device=device)
+        self._setup(params, device, flow_estimator, dtype, flow_scale, fast_check)
         self.use_structure = use_structure
-        self.flow_scale = flow_scale
-        self.fast_check = fast_check
-        self._prev_feats = None
-        self._pending: Optional[_LateScalar] = None
-        self.last_band = None
-
-    def reset(self) -> None:
-        self._prev_feats = None
-        self._pending = None
 
     @profiling.traced("flow")
-    @torch.no_grad()
     def __call__(self, frames):
-        n, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
-        feats = self.estimator.prep_batch(frames, self.flow_scale)
-        prev_feats, self._prev_feats = self._prev_feats, feats
-        if prev_feats is None:
-            return None
-        backward, bwd_low, fwd_low, maxabs = self.estimator.refine_pair_batch(
-            feats, prev_feats, (h, w), self.flow_scale, fast_check=self.fast_check)
+        return self._step(frames)
+
+    def _settings(self):
+        return self.fast_check, self.use_structure
+
+    def _prep(self, frames):
+        return self.estimator.prep_batch(frames, self.flow_scale)
+
+    def _refine(self, frames, feats, prev_feats):
+        """(backward, backward_low, forward_low, maxabs over the batch)."""
+        return self.estimator.refine_pair_batch(
+            feats, prev_feats, tuple(frames.shape[1:3]), self.flow_scale,
+            fast_check=self.fast_check)
+
+    def _check(self, frames, flows, warp_low: int):
         # engine band = the plain bucket, consistency band = twice that (the
         # check composes a round trip); out-of-band pixels are masked
-        prev = self._pending.get() if self._pending is not None else float(maxabs)
-        warp_low = flow_band(prev)
-        band = 2 * warp_low
-        if self.flow_scale != 1.0:
-            self.last_band = flow_band(warp_low / self.flow_scale)
-        else:
-            self.last_band = warp_low
-        limit_low = self.last_band * bwd_low.shape[1] / h
-        images = frames.to(backward.device) if self.use_structure else None
-        certs, rel_max = consistency.consistency_mask_streaming_batch(
-            bwd_low, fwd_low, images, out_hw=(h, w), band=band,
+        h, w = frames.shape[1], frames.shape[2]
+        _, bwd_low, fwd_low, _ = flows
+        limit_low = self._engine_band(warp_low) * bwd_low.shape[1] / h
+        images = frames.to(flows[0].device) if self.use_structure else None
+        return consistency.consistency_mask_streaming_batch(
+            bwd_low, fwd_low, images, out_hw=(h, w), band=2 * warp_low,
             warp_limit=limit_low, with_rel_maxabs=True)
-        self._pending = _LateScalar(rel_max)
-        return [(backward[i], certs[i]) for i in range(n)]
+
+    def _result(self, backward, certs):
+        return [(backward[i], certs[i]) for i in range(backward.shape[0])]

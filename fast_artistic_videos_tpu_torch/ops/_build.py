@@ -16,11 +16,18 @@ is resolved once per process (:meth:`Library.entry`, no lock after the
 first call), the device is switched only when the tensors' card is not the
 thread's current one, and the stream's raw handle is read without building
 a ``torch.cuda.Stream`` object.
+
+A kernel's Python entry marked :func:`graph_break` is never held in the
+flow provider's CUDA graphs (``flow.graphs``): a step's graph ends before
+its launch, which runs eagerly between two replays, so every launch of the
+kernel is a call of its entry on a card, counted and spanned as any other.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -171,7 +178,12 @@ class Kernel:
     def call(self, name: str, device: torch.device, *args):
         """Launch C entry `name` on `device` (a tensor on cuda:N launches on
         card N, from any thread: the card is made current for the call when
-        it is not), on that card's current stream, appended to `args`."""
+        it is not), on that card's current stream, appended to `args`.
+        Raises inside the capture of a step's graph (:func:`capturing`):
+        only an entry marked :func:`graph_break` launches there."""
+        if getattr(_GRAPH, "handler", None) is not None:
+            raise RuntimeError(f"kernel {self.name} launched inside a step's graph capture: "
+                               f"its Python entry needs _build.graph_break")
         fn = LIBRARY.entry(name)
         current = torch.cuda.current_device()
         index = current if device.index is None else device.index
@@ -186,6 +198,39 @@ class Kernel:
         with self._count_lock:
             self.launches += 1
             self.routes[name] = self.routes.get(name, 0) + 1
+
+
+_GRAPH = threading.local()           # .handler: of the step this thread captures
+
+
+def graph_break(entry):
+    """Mark `entry`, a hand-written kernel's Python entry, as one that a
+    step's graph never holds. While this thread captures a step
+    (:func:`capturing`), a call goes to the capture's handler, which ends
+    the graph there and launches the kernel eagerly; at each replay the
+    step calls the entry again by its module's attribute, so that whatever
+    wraps it there sees every launch."""
+    @functools.wraps(entry)
+    def wrapped(*args, **kwargs):
+        handler = getattr(_GRAPH, "handler", None)
+        if handler is None:
+            return entry(*args, **kwargs)
+        return handler(entry, args, kwargs)
+    return wrapped
+
+
+@contextlib.contextmanager
+def capturing(handler):
+    """Around the capture of a step's graph on this thread:
+    ``handler(entry, args, kwargs)`` takes each call of a
+    :func:`graph_break` entry. None: no capture (the eager launch
+    between two graphs)."""
+    saved = getattr(_GRAPH, "handler", None)
+    _GRAPH.handler = handler
+    try:
+        yield
+    finally:
+        _GRAPH.handler = saved
 
 
 def no_grad_inputs(name: str, *tensors):

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import profiling
-from ._build import Kernel, no_grad_inputs, ptr
+from ._build import Kernel, graph_break, no_grad_inputs, ptr
 
 KERNEL = Kernel("warp_banded", "fast_artistic_videos_tpu_torch/csrc/warp_banded.cu",
                 "fast_artistic_videos_tpu/ops/warp_pallas.py:32", "kernel.K1")
@@ -78,6 +78,7 @@ def warp_route(c: int, dtype, aligned: bool = True):
     return VEC_ENTRY, 1
 
 
+@graph_break
 def warp_banded(img, flow, band: int):
     """K1. img (N, H, W, C) float32 or bfloat16; flow (N, H, W, 2) float32
     (dx, dy). A CPU tensor runs the plain version; a CUDA tensor launches the

@@ -25,13 +25,17 @@ Finished spans are kept in memory, in a buffer of the last ``MAX_SPANS``
 to disk. ``spans(start_ns, end_ns)`` reads those wholly inside an interval,
 ``self_ns`` the self time of some of them.
 
-The spans, by layer: ``pipeline.prefetch_wait`` and ``pipeline.writer_wait``
-(the drivers' loops, ``utils.pipeline``), ``pool.process`` and
-``pool.upload`` (``video.serving``), ``flow`` and ``flow.band_wait``
-(``flow.provider``), ``engine.step`` (``video.engine``'s public steps),
-``stylizer`` (the stylizer's forward), ``vr.prior``, ``vr.blend`` and
-``vr.outputs`` (``video.driver_vr``), and ``kernel.K1`` to ``kernel.K6``
-(each hand-written kernel's Python entry, on a card only).
+The spans, by layer: ``pipeline.prefetch_wait`` and
+``pipeline.writer_wait`` (the drivers' loops, ``utils.pipeline``),
+``pool.process`` and ``pool.upload`` (``video.serving``), ``flow`` and
+``flow.band_wait`` (``flow.provider``), ``flow.capture`` and
+``flow.replay`` inside ``flow`` (the capture and the replay of a part
+of the step as CUDA graphs, ``flow.graphs``, on a card only), ``flow.fn2.c``,
+``.s1``, ``.s2``, ``.sd`` and ``.fusion`` (FlowNet 2.0's networks, where
+they run outside a graph), ``engine.step`` (``video.engine``'s public
+steps), ``stylizer`` (the stylizer's forward), ``vr.prior``, ``vr.blend``
+and ``vr.outputs`` (``video.driver_vr``), and ``kernel.K1`` to
+``kernel.K7`` (each hand-written kernel's Python entry, on a card only).
 """
 
 from __future__ import annotations

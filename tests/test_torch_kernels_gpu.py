@@ -3,13 +3,15 @@ K4 block conv, K5 strip warp, K6 folded upsample conv, K7 correlation)
 against their plain PyTorch versions on a card, the stylizer's kernel paths
 (batch 1: K3 + K2; batch > 1: K4; float32 upsample tails: K6) against its
 plain (cuDNN) path, FlowNet 2.0 against the benchmark's plain reference,
-and the trainer's float32 step and optimizer updates as the kernels see
-them. Needs a CUDA card: every test skips
+the trainer's float32 step and optimizer updates as the kernels see them,
+and the flow providers' steps replayed from CUDA graphs against eager
+steps. Needs a CUDA card: every test skips
 without one. This file imports no jax, so on the card host it runs alone:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import collections
 import contextlib
 import threading
 
@@ -987,3 +989,234 @@ def test_flownet2_matches_the_reference_at_the_cell_shape(cuda):
     half = flownet2.FlowNet2Estimator(params, dtype=torch.bfloat16, device=cuda)
     _, bf_ab, _, _ = half.refine_pair(fa, fb, (1080, 1920), 0.5, with_lowres=True)
     assert (bf_ab - want_ab).abs().max().item() > tol
+
+
+# ---------------------------------------------------------------------------
+# the flow providers' steps replayed from CUDA graphs (flow/graphs.py)
+# ---------------------------------------------------------------------------
+
+# a pan whose step moves the band bucket (at flow scale 0.5 the 40-px steps
+# are 20 px of flow: past the smallest bucket of 8) and back
+PAN_STEPS = (3, 3, 3, 40, 40, 40, 3, 3, 3, 3)
+
+
+def _pan(seed, n, h, w, dev):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + 16, w + sum(PAN_STEPS), 3), dtype=np.uint8)
+    xs = np.cumsum((0,) + PAN_STEPS)
+    return [torch.from_numpy(np.ascontiguousarray(base[8:8 + h, xs[t]:xs[t] + w])).to(dev)
+            for t in range(n)]
+
+
+def _tensors(out):
+    if out is None:
+        return []
+    return [t for pair in out for t in pair] if isinstance(out, list) else list(out)
+
+
+def _feed(providers, clips, n, restart):
+    """Frames 0..n-1 of each clip through its provider, interleaved, then
+    provider 0 restarted on `restart` frames of its clip: (every output,
+    held; a copy of each taken when it was returned; the bands)."""
+    outs, copies, bands = [], [], []
+    feed = [(p, c[t]) for t in range(n) for p, c in zip(providers, clips)]
+    for i, (p, frame) in enumerate(feed + [(None, c) for c in clips[0][:restart]]):
+        if p is None:
+            p = providers[0]
+            if i == len(feed):
+                p.reset()
+        out = p(frame)
+        outs.append(out)
+        copies.append([t.clone() for t in _tensors(out)])
+        bands.append(p.last_band)
+    torch.cuda.synchronize()
+    return outs, copies, bands
+
+
+def _counts(kernels):
+    return {k.name: (k.launches, dict(k.routes)) for k in kernels}
+
+
+# each kernel's Python entry, by module, as the benchmark's launch record
+# wraps it
+_ENTRIES = {"warp_banded": ("fast_artistic_videos_tpu_torch.ops.warp_kernel", "warp_banded"),
+            "correlation_f32": ("fast_artistic_videos_tpu_torch.ops.correlation_kernel",
+                                "correlation")}
+
+
+def _graphed_against_eager(make, clips, n, kernels, monkeypatch, restart=2, threaded=False):
+    """Runs `make()`'s providers (one a clip, one estimator) eagerly and
+    from graphs; every output of the graphed run bit-identical to the
+    eager run's and unchanged by the calls after it, each kernel's
+    launches and routes the same, every launch of the graphed run a call
+    of the kernel's entry through its module (a wrapper set there counts
+    it) with the kernel's span, and the graph spans counted. Returns the
+    engine bands, the band buckets the steps read (``_band``, in call
+    order) and the names of the graphed run's spans."""
+    import importlib
+
+    from fast_artistic_videos_tpu_torch.flow import provider as provider_mod
+    from fast_artistic_videos_tpu_torch.utils import profiling
+
+    for k in kernels:
+        k.reset()
+    with monkeypatch.context() as m:
+        m.setattr(provider_mod._Streaming, "_graphs", lambda self, frames: None)
+        eager, _, eager_bands = _feed(make(), clips, n, restart)
+    eager_counts = _counts(kernels)
+    for k in kernels:
+        k.reset()
+    profiling.clear()
+    got = {}
+    buckets = []
+    band = provider_mod._Streaming._band
+
+    seen = collections.Counter()
+
+    def wrap(name, fn):
+        def wrapped(*args, **kwargs):
+            seen[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def graphed():
+        with profiling.recording(), monkeypatch.context() as m:
+            m.setattr(provider_mod._Streaming, "_band",
+                      lambda self, flows: buckets.append(band(self, flows)) or buckets[-1])
+            for k in kernels:
+                mod = importlib.import_module(_ENTRIES[k.name][0])
+                m.setattr(mod, _ENTRIES[k.name][1], wrap(k.name, getattr(mod, _ENTRIES[k.name][1])))
+            got["run"] = _feed(make(), clips, n, restart)
+
+    if threaded:
+        # the 2D driver's flow runs on its prefetch thread while the loop
+        # thread launches, waits for its stream and copies frames to the
+        # host: a capture must see none of it (a device-wide synchronise
+        # during a capture is an error of CUDA's, whatever the thread)
+        worker = threading.Thread(target=graphed)
+        x = torch.rand(512, 512, device=clips[0][0].device)
+        worker.start()
+        while worker.is_alive():
+            x = (x @ x).clamp_(-1, 1)
+            x.sum().cpu()
+            torch.cuda.current_stream().synchronize()
+        worker.join()
+    else:
+        graphed()
+    outs, copies, bands = got["run"]
+    spans = profiling.spans()
+    profiling.clear()
+    assert bands == eager_bands
+    for i, (a, b, c) in enumerate(zip(eager, outs, copies)):
+        ta, tb = _tensors(a), _tensors(b)
+        assert len(ta) == len(tb) == len(c)
+        for x, y, z in zip(ta, tb, c):
+            assert torch.equal(x, y), (i, (x - y).abs().max().item())
+            assert torch.equal(y, z), i
+    assert _counts(kernels) == eager_counts
+    names = [s.name for s in spans]
+    for k in kernels:
+        assert seen[k.name] == names.count(k.span) == k.launches > 0, k.name
+    assert names.count("flow") == len(outs)
+    return bands, buckets, names
+
+
+def test_graphed_pwclite_provider_matches_eager_bit_for_bit(cuda, monkeypatch):
+    """Two StreamingFlowProviders on one PWC-lite estimator at flow scale
+    0.5, interleaved over 540x960 pans whose step moves the band bucket,
+    on a thread of their own while another thread launches and
+    synchronises; one of them restarted (its first frame and first pair
+    then replay too)."""
+    from fast_artistic_videos_tpu_torch.flow import provider as provider_mod
+
+    est = estimator.FlowEstimator(estimator.load_params("bundled", cuda), device=cuda)
+    clips = [_pan(31 + s, 8, 540, 960, cuda) for s in range(2)]
+
+    def make():
+        return [provider_mod.StreamingFlowProvider(flow_estimator=est, flow_scale=0.5,
+                                                   erode_window=7) for _ in clips]
+
+    bands, buckets, names = _graphed_against_eager(make, clips, 8, [warp_kernel.KERNEL],
+                                                   monkeypatch, threaded=True)
+    assert len({b for b in bands if b is not None}) >= 2, bands
+    # the pair, "prep" at the restart, and one check a bucket the graphed
+    # steps met (the two first pairs ran eagerly, before the pair's capture)
+    assert len(buckets) == 15
+    assert names.count("flow.capture") == 2 + len(set(buckets[2:]))
+    # 12 graphed pairs and the restart's first pair: two parts each, and
+    # the restart's first frame one, each a capture or a replay
+    assert names.count("flow.capture") + names.count("flow.replay") == 2 * 13 + 1
+
+
+def test_graphed_batched_provider_matches_eager_bit_for_bit(cuda, monkeypatch):
+    """The BatchedStreamingFlowProvider on six 256-px faces at flow scale
+    0.5 (float32 faces, as the VR driver uploads them), the band moving."""
+    from fast_artistic_videos_tpu_torch.flow import provider as provider_mod
+
+    est = estimator.FlowEstimator(estimator.load_params("bundled", cuda), device=cuda)
+    faces = [_pan(41 + p, 8, 256, 256, cuda) for p in range(6)]
+    clip = [torch.stack([f[t] for f in faces]).float() / 255.0 for t in range(8)]
+
+    def make():
+        return [provider_mod.BatchedStreamingFlowProvider(flow_estimator=est, flow_scale=0.5)]
+
+    bands, buckets, names = _graphed_against_eager(make, [clip], 8, [warp_kernel.KERNEL],
+                                                   monkeypatch)
+    assert len({b for b in bands if b is not None}) >= 2, bands
+    # steps 2-7 and the restart's first pair are graphed; "prep" at the restart
+    assert len(buckets) == 8
+    assert names.count("flow.capture") == 2 + len(set(buckets[1:]))
+
+
+def test_flownet2_provider_stays_eager_on_a_card(cuda):
+    """Two StreamingFlowProviders on one FlowNet 2.0 estimator (seeded
+    weights at the published widths), 540x960 pans at flow scale 0.5: no
+    step is captured or replayed and no graphs are made; each pair runs
+    FlowNetC's span and one K7 launch, as the parent's eager step did."""
+    from fast_artistic_videos_tpu_torch.flow import flownet2
+    from fast_artistic_videos_tpu_torch.flow import graphs as step_graphs
+    from fast_artistic_videos_tpu_torch.flow import provider as provider_mod
+    from fast_artistic_videos_tpu_torch.utils import profiling
+    from portbench.reference import flow_flownet2 as ref
+
+    est = flownet2.FlowNet2Estimator(ref.draw(2 ** 31 + 23, cuda), device=cuda)
+    clips = [_pan(51 + s, 4, 540, 960, cuda) for s in range(2)]
+    providers = [provider_mod.StreamingFlowProvider(flow_estimator=est, flow_scale=0.5)
+                 for _ in clips]
+    correlation_kernel.KERNEL.reset()
+    profiling.clear()
+    with profiling.recording():
+        outs = [p(c[t]) for t in range(4) for p, c in zip(providers, clips)]
+        torch.cuda.synchronize()
+    names = [s.name for s in profiling.spans()]
+    profiling.clear()
+    assert sum(o is not None for o in outs) == 6
+    assert names.count("flow.capture") == names.count("flow.replay") == 0
+    assert names.count("flow.fn2.c") == names.count("kernel.K7") == 6
+    assert correlation_kernel.KERNEL.launches == 6
+    assert est not in step_graphs._SHARED
+
+
+def test_graph_captured_under_the_profiler_matches_eager(cuda, monkeypatch):
+    """A capture inside a torch.profiler run (a band first met inside a
+    traced window) replays as eager runs, and the profiler keeps the
+    replayed kernels."""
+    from fast_artistic_videos_tpu_torch.flow import provider as provider_mod
+
+    est = estimator.FlowEstimator(estimator.load_params("bundled", cuda), device=cuda)
+    clip = _pan(61, 5, 270, 480, cuda)
+    with monkeypatch.context() as m:
+        m.setattr(provider_mod._Streaming, "_graphs", lambda self, frames: None)
+        p = provider_mod.StreamingFlowProvider(flow_estimator=est, flow_scale=0.5)
+        want = [p(f) for f in clip]
+    p = provider_mod.StreamingFlowProvider(flow_estimator=est, flow_scale=0.5)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = [p(f) for f in clip]
+        torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        for x, y in zip(_tensors(a), _tensors(b)):
+            assert torch.equal(x, y)
+    names = {e.name for e in prof.events()}
+    assert "cudaGraphLaunch" in names
+    assert any("warp_banded" in n for n in names)
