@@ -252,6 +252,9 @@ class FlowEstimator:
     and both flow directions of a pair from two cached pyramids
     (``refine_pair``), on ``device`` (the card unless ``device="cpu"``)."""
 
+    # the streaming providers may replay this step from CUDA graphs
+    capturable = True
+
     def __init__(self, params: Params, dtype=torch.float32, device=device_mod.DEFAULT):
         self.params = params
         self.device = device_mod.resolve(device)

@@ -127,6 +127,11 @@ class FlowNet2Estimator:
     refinements give both directions of a pair. On ``device`` (the card
     unless ``device="cpu"``); convs in ``dtype``."""
 
+    # the streaming providers run this step eagerly, never from CUDA graphs:
+    # the card, not the host, sets its pace, and its networks' spans
+    # (flow.fn2.*) open only where their code runs
+    capturable = False
+
     def __init__(self, params: Params, dtype=torch.float32, device=device_mod.DEFAULT):
         if not is_flownet2(params):
             raise ValueError("not a FlowNet 2.0 checkpoint: no " + MARKER)

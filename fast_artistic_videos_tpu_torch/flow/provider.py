@@ -13,7 +13,8 @@ needs it, by which time the copy has long finished.
 On a card the step is replayed from CUDA graphs (``flow.graphs``), which
 providers on one estimator share: a few launches a step instead of
 thousands. The first frame and the first pair of a key run eagerly, and
-so does every step of FlowNet 2.0, which the card paces.
+so does every step of an estimator that is not ``capturable`` (FlowNet
+2.0's).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from ..core import device as device_mod
 from ..ops.warp import flow_band
 from ..utils import profiling
-from . import consistency, family, flownet2
+from . import consistency, family
 from . import graphs as step_graphs
 
 
@@ -63,8 +64,8 @@ class _Streaming:
     shared by every provider on the estimator (``flow.graphs``); a key's
     first frame and first pair run eagerly, which also warms cuDNN up
     before any capture, and once its graphs exist a stream's first frame
-    (part "prep") and first pair replay too. On the CPU, and with FlowNet
-    2.0's estimator, every step is eager."""
+    (part "prep") and first pair replay too. On the CPU, and with an
+    estimator that is not ``capturable``, every step is eager."""
 
     def _setup(self, params, device, flow_estimator, dtype, flow_scale: float,
                fast_check: bool) -> None:
@@ -116,10 +117,7 @@ class _Streaming:
 
     def _graphs(self, frames):
         dev = self.estimator.device
-        # FlowNet 2.0's step stays eager: the card, not the host, sets its
-        # pace, and its networks' spans (flow.fn2.*) open only where their
-        # code runs
-        if dev.type != "cuda" or isinstance(self.estimator, flownet2.FlowNet2Estimator):
+        if dev.type != "cuda" or not self.estimator.capturable:
             return None
         card = torch.device("cuda", torch.cuda.current_device() if dev.index is None
                             else dev.index)
@@ -234,18 +232,16 @@ class BatchedStreamingFlowProvider(_Streaming):
     streams and sized from the previous step's maximum |flow| over the
     check-passing pixels of the whole batch, read back without blocking."""
 
-    def __init__(self, params=None, device=device_mod.DEFAULT, use_structure: bool = True,
-                 flow_scale: float = 1.0, flow_estimator=None, dtype=None,
-                 fast_check: bool = False):
+    def __init__(self, params=None, device=device_mod.DEFAULT, flow_scale: float = 1.0,
+                 flow_estimator=None, dtype=None, fast_check: bool = False):
         self._setup(params, device, flow_estimator, dtype, flow_scale, fast_check)
-        self.use_structure = use_structure
 
     @profiling.traced("flow")
     def __call__(self, frames):
         return self._step(frames)
 
     def _settings(self):
-        return self.fast_check, self.use_structure
+        return (self.fast_check,)
 
     def _prep(self, frames):
         return self.estimator.prep_batch(frames, self.flow_scale)
@@ -262,9 +258,8 @@ class BatchedStreamingFlowProvider(_Streaming):
         h, w = frames.shape[1], frames.shape[2]
         _, bwd_low, fwd_low, _ = flows
         limit_low = self._engine_band(warp_low) * bwd_low.shape[1] / h
-        images = frames.to(flows[0].device) if self.use_structure else None
         return consistency.consistency_mask_streaming_batch(
-            bwd_low, fwd_low, images, out_hw=(h, w), band=2 * warp_low,
+            bwd_low, fwd_low, frames.to(flows[0].device), out_hw=(h, w), band=2 * warp_low,
             warp_limit=limit_low, with_rel_maxabs=True)
 
     def _result(self, backward, certs):

@@ -11,22 +11,15 @@ Two execution paths with the same math:
 
   * plain: PyTorch ops, layer by layer (instance norm with float32
     ``E[x^2] - E[x]^2`` statistics, biased variance, eps 1e-5);
-  * kernels (``fused``): layers 0-2 through the front conv kernel
-    (``ops.front_kernel``, K3) and the residual chain through the chain
-    conv kernel (``ops.rblock_kernel``, K2), each conv's instance norm +
-    ReLU fused into the next launch's prologue — the counterpart of the
-    JAX package's ``fused_front="full"`` + ``fused_rblocks`` path — and
-    every other 3x3 block conv at widths that are multiples of 128 through
-    the block conv kernel (``ops.conv_kernel``, K4), the counterpart of
-    ``apply(pallas_conv=True)``: in practice the residual blocks of a batch
-    larger than one, which the chain does not take; and in float32 each
-    nearest 2x upsample with the zero-padded stride-1 conv after it through
-    the folded upsample conv kernel (``ops.upconv_kernel``, K6: the
-    canonical net's tail), the upsample's norm taken at low resolution and
-    applied with its ReLU in the kernel's prologue, the conv's norm
-    statistics (or the net's tanh) in its epilogue — the counterpart of the
-    JAX package's ``_folded_upsample_conv``. The kernel path is the default
-    for CUDA tensors wherever the architecture allows it.
+  * kernels (``fused``, the default for CUDA tensors): :func:`layer_plan`
+    names, for the input's shape and dtype, the layers that take the front
+    conv kernel (``ops.front_kernel``, K3), the residual chain conv kernel
+    (``ops.rblock_kernel``, K2), the block conv kernel (``ops.conv_kernel``,
+    K4) and the folded upsample conv kernel (``ops.upconv_kernel``, K6) —
+    the counterparts of the JAX package's ``fused_front="full"``,
+    ``fused_rblocks``, ``pallas_conv`` and ``_folded_upsample_conv``. K3,
+    K2 and K6 take a pending norm + ReLU in their prologues and give norm
+    statistics (K6: or the net's tanh) in their epilogues.
 
 The JAX package's other TPU-layout rewrites (phase-domain front,
 space-to-depth convs, phase io) are exact re-expressions of the same convs
@@ -141,59 +134,54 @@ def _norm_apply(x, p, use_instance_norm: bool):
     return _affine(x, *_norm_eff(x, p, use_instance_norm))
 
 
-def _block_conv(h, w, b, pad: int, kernel: bool):
-    """Block conv dispatch (the JAX package's ``_block_conv``): kernel K4
-    for 3x3 convs whose input and output widths are multiples of 128,
-    F.conv2d otherwise. pad 1 is the SAME form; pad 0 the VALID form on an
-    input the block padded itself (reflect / replicate) or that shrinks
-    (none / reflect-start)."""
-    if (kernel and w.shape[2] == 3 and w.shape[3] == 3
-            and w.shape[1] % 128 == 0 and w.shape[0] % 128 == 0):
-        if pad == 1:
-            return conv_kernel.conv3x3(h.contiguous(), w, b)
-        return conv_kernel.conv3x3_valid(h.contiguous(), w, b)
-    return conv2d(h, w, b, 1, pad)
+def _k4_conv(h, w, b, pad: int):
+    """A block's 3x3 conv through kernel K4 when its input and output widths
+    are multiples of 128, else conv2d (the JAX package's ``_block_conv`` with
+    ``pallas_conv=True``): pad 1 is the SAME form, pad 0 the VALID form on an
+    input the block padded or that shrinks."""
+    if w.shape[0] % 128 or w.shape[1] % 128 or w.shape[2:] != (3, 3):
+        return conv2d(h, w, b, 1, pad)
+    if pad == 1:
+        return conv_kernel.conv3x3(h.contiguous(), w, b)
+    return conv_kernel.conv3x3_valid(h.contiguous(), w, b)
 
 
-def _block_apply(x, p, layer: LayerSpec, use_in: bool, residual: bool,
-                 kernel: bool = False):
+def _block_apply(x, p, layer: LayerSpec, use_in: bool, conv):
+    """A conv or residual block, its 3x3 convs through `conv` (conv2d or K4)."""
     pt = layer.block_padding
     inner_pad = 1 if pt == "zero" else 0
     h = x
     if pt in ("reflect", "replicate"):
         h = _pad2d(h, 1, pt)
-    h = _block_conv(h, p["conv1"]["w"], p["conv1"]["b"], inner_pad, kernel)
+    h = conv(h, p["conv1"]["w"], p["conv1"]["b"], pad=inner_pad)
     h = torch.relu(_norm_apply(h, p["norm1"], use_in))
     if pt in ("reflect", "replicate"):
         h = _pad2d(h, 1, pt)
-    h = _block_conv(h, p["conv2"]["w"], p["conv2"]["b"], inner_pad, kernel)
+    h = conv(h, p["conv2"]["w"], p["conv2"]["b"], pad=inner_pad)
     h = _norm_apply(h, p["norm2"], use_in)
-    if not residual:
+    if layer.kind != "res_block":
         return h
     skip = shave(x, 2) if pt in ("none", "reflect-start") else x
     return h + skip
 
 
-def supports_phase_io(spec: ModelSpec) -> bool:
-    """The JAX package's test for its phase-io architectures (level-2 phase
-    front: conv s1 SAME + two 3x3 s2 pad-1 convs, instance norm, an input
-    reflect pad that is a multiple of 4). The port runs no phase layout; the
-    CLI keeps the test to validate ``--phase_resident`` as the JAX CLI
-    does."""
-    if len(spec.layers) < 3 or not spec.use_instance_norm:
-        return False
-    if spec.input_pad % 4 != 0:
-        return False
-    l0, l1, l2 = spec.layers[0], spec.layers[1], spec.layers[2]
-    return (
-        l0.kind == "conv" and l0.stride == 1 and l0.pad_mode is None
-        and l0.pad == (l0.ksize - 1) // 2 and l0.norm_after and l0.relu_after
-        and l1.kind == "conv" and l1.stride == 2 and l1.ksize == 3
-        and l1.pad == 1 and l1.pad_mode is None
-        and l1.norm_after and l1.relu_after
-        and l2.kind == "conv" and l2.stride == 2 and l2.ksize == 3
-        and l2.pad == 1 and l2.pad_mode is None
-    )
+def _layer(params, spec: ModelSpec, i: int, x, block_conv):
+    """Layer i in PyTorch ops, a block's convs through `block_conv`; its norm, ReLU."""
+    layer, name = spec.layers[i], f"layer{i:02d}"
+    p = params.get(name)
+    if layer.kind == "conv":
+        if layer.pad_mode:
+            x = _pad2d(x, (layer.ksize - 1) // 2, layer.pad_mode)
+        x = conv2d(x, p["w"], p["b"], layer.stride, layer.pad)
+    elif layer.kind == "full_conv":
+        x = conv_transpose2d(x, p["w"], p["b"], layer.stride, layer.pad, layer.out_adjust)
+    elif layer.kind == "upsample":
+        x = upsample_nearest(x, layer.scale)
+    else:
+        x = _block_apply(x, p, layer, spec.use_instance_norm, block_conv)
+    if layer.norm_after:
+        x = _norm_apply(x, params[name + "_norm"], spec.use_instance_norm)
+    return torch.relu(x) if layer.relu_after else x
 
 
 # ---------------------------------------------------------------------------
@@ -262,16 +250,15 @@ def to_device(tree, dev):
 
 
 # ---------------------------------------------------------------------------
-# the kernel path: front (K3) and residual chain (K2)
+# the plan: which path takes which layers
 # ---------------------------------------------------------------------------
 
-def _front_eligible(spec: ModelSpec, x, stop_after) -> bool:
-    """The JAX package's conditions for its full-kernel front
-    (``apply(fused_front="full")``): layers 0-2 are [conv s1 SAME -> IN ->
-    ReLU -> 3x3 s2 pad-1 conv -> IN -> ReLU -> 3x3 s2 pad-1 conv], batch 1,
-    padded H, W divisible by 4."""
+def _front_pattern(spec: ModelSpec) -> bool:
+    """Layers 0-2 are [conv s1 SAME -> IN -> ReLU -> 3x3 s2 pad-1 conv -> IN
+    -> ReLU -> 3x3 s2 pad-1 conv]: the JAX package's full-kernel front
+    (``apply(fused_front="full")``) and its level-2 phase front."""
     ls = spec.layers
-    if not spec.use_instance_norm or len(ls) < 3 or x.shape[0] != 1:
+    if not spec.use_instance_norm or len(ls) < 3:
         return False
     l0, l1, l2 = ls[0], ls[1], ls[2]
     return (l0.kind == "conv" and l0.stride == 1 and l0.pad_mode is None
@@ -280,10 +267,98 @@ def _front_eligible(spec: ModelSpec, x, stop_after) -> bool:
             and l1.pad == 1 and l1.pad_mode is None
             and l1.norm_after and l1.relu_after
             and l2.kind == "conv" and l2.stride == 2 and l2.ksize == 3
-            and l2.pad == 1 and l2.pad_mode is None
-            and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0
-            and (stop_after is None or stop_after >= 3))
+            and l2.pad == 1 and l2.pad_mode is None)
 
+
+def supports_phase_io(spec: ModelSpec) -> bool:
+    """The JAX package's test for its phase-io architectures: K3's pattern and
+    an input pad that is a multiple of 4. The port runs no phase layout; the
+    CLI validates ``--phase_resident`` with it as the JAX CLI does."""
+    return _front_pattern(spec) and spec.input_pad % 4 == 0
+
+
+def folds_upsample(up: LayerSpec, conv: LayerSpec, cin: int) -> bool:
+    """Whether K6 takes layer `up` with layer `conv` after it on `cin`
+    channels: a nearest 2x upsample, then a stride-1 conv with zero padding
+    (k - 1) / 2 of a shape that ``upconv_kernel.covers`` names."""
+    return (up.kind == "upsample" and up.scale == 2
+            and conv.kind == "conv" and conv.stride == 1 and conv.pad_mode is None
+            and conv.ksize % 2 == 1 and conv.pad == (conv.ksize - 1) // 2
+            and upconv_kernel.covers(conv.ksize, cin, conv.out_channels))
+
+
+def _chain(spec: ModelSpec, n: int, h: int, w: int):
+    """Indices of the first maximal run of VALID residual blocks (the JAX
+    package's ``_fused_chain_idxs`` with ``fused_rblocks=True``) at batch 1
+    and h x w larger than the chain's shrinking (4 px per block), else ()."""
+    if not spec.use_instance_norm or n != 1:
+        return ()
+    run = []
+    for i, layer in enumerate(spec.layers):
+        if (layer.kind == "res_block" and layer.block_padding in ("none", "reflect-start")
+                and not layer.norm_after and not layer.relu_after):
+            run.append(i)
+        elif run:
+            break
+    return tuple(run) if h > 4 * len(run) + 2 and w > 4 * len(run) + 2 else ()
+
+
+def layer_plan(spec: ModelSpec, shape, dtype, fused: bool, start_at: int = 0,
+               stop_after=None):
+    """The steps of one :func:`apply` call, in order, for an input of
+    `shape` (N, H, W, C: x as :func:`apply` takes it) in the compute `dtype`:
+    a list of (path, the indices of the layers it takes):
+
+      * "K3": layers 0-2 through the front conv kernel, at batch 1 on a
+        padded H and W divisible by 4, when the call runs past layer 2. Layer
+        2's norm and ReLU go into the first launch of a "K2" step right after
+        it, else before the next step;
+      * "K2": the residual chain (:func:`_chain`, sized after K3) through the
+        chain conv kernel, when the call runs all of it;
+      * "K6": an upsample and the conv after it (:func:`folds_upsample`)
+        through the folded upsample conv kernel in float32, with the net's
+        tanh when the conv is the last layer;
+      * "K4": a block whose width is a multiple of 128, its 3x3 convs
+        through the block conv kernel (:func:`_k4_conv`: a conv of other
+        widths, such as a widening block's first, through conv2d);
+      * "torch": one layer in PyTorch ops; "tanh": the net's output tanh.
+
+    fused=False plans PyTorch ops only."""
+    ls, last = spec.layers, len(spec.layers) - 1
+    n, h, w, c = shape
+    if not start_at:
+        h, w = h + 2 * spec.input_pad, w + 2 * spec.input_pad
+    plan, i = [], start_at
+    if (fused and not start_at and n == 1 and h % 4 == 0 and w % 4 == 0
+            and (stop_after is None or stop_after >= 3) and _front_pattern(spec)):
+        plan.append(("K3", (0, 1, 2)))
+        i, h, w, c = 3, h // 4, w // 4, ls[2].out_channels
+    if stop_after is not None and stop_after < i:
+        return plan
+    end = last if stop_after is None else min(stop_after, last)
+    chain = _chain(spec, n, h, w) if fused else ()
+    while i <= end:
+        layer = ls[i]
+        if chain[:1] == (i,) and chain[-1] <= end:
+            step = ("K2", chain)
+        elif (fused and dtype == torch.float32 and i < end
+              and folds_upsample(layer, ls[i + 1], c)):
+            step = ("K6", (i, i + 1))
+        elif (fused and layer.kind in ("conv_block", "res_block")
+              and layer.out_channels % 128 == 0):
+            step = ("K4", (i,))
+        else:
+            step = ("torch", (i,))
+        plan.append(step)
+        i, c = step[1][-1] + 1, ls[step[1][-1]].out_channels
+    if end == last and plan[-1:] != [("K6", (last - 1, last))]:
+        plan.append(("tanh", ()))         # a K6 launch that ends the net applies it
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# the kernel paths: front (K3), residual chain (K2), folded upsample (K6)
+# ---------------------------------------------------------------------------
 
 def front_layers(x, p0, layer0: LayerSpec, norm0, p1, norm1, p2):
     """Layers 0-2 through kernel K3, three launches on the logical grid.
@@ -301,23 +376,6 @@ def front_layers(x, p0, layer0: LayerSpec, norm0, p1, norm1, p2):
     eff2 = eff_affine(st2, norm1["scale"], norm1["bias"], y2.shape[0] * y2.shape[1])
     z, st3 = front_kernel.same_conv(y2, p2["w"], p2["b"], 2, 1, eff=eff2, relu=True)
     return z[None], st3, z.shape[0] * z.shape[1]
-
-
-def _fused_chain_idxs(spec: ModelSpec, x):
-    """Indices of the first maximal run of VALID residual blocks (the JAX
-    package's ``_fused_chain_idxs`` with ``fused_rblocks=True``)."""
-    if not spec.use_instance_norm or x.shape[0] != 1:
-        return ()
-    run = []
-    for i, layer in enumerate(spec.layers):
-        ok = (layer.kind == "res_block"
-              and layer.block_padding in ("none", "reflect-start")
-              and not layer.norm_after and not layer.relu_after)
-        if ok:
-            run.append(i)
-        elif run:
-            break
-    return tuple(run)
 
 
 def fused_res_chain(params, x, idxs, pre_eff=None, pre_relu: bool = False):
@@ -402,91 +460,43 @@ def apply(params: Params, spec: ModelSpec, x, *, dtype=None, stop_after=None,
     i-1 (input pad and the kernel front are skipped); stop_after=i returns
     the activation after layer i.
 
-    fused: route layers 0-2 and the residual chain through kernels K3 and
-    K2, the other 3x3 block convs whose widths are multiples of 128
-    through kernel K4 (one launch per conv for the whole batch), and in
-    float32 each nearest 2x upsample with the conv after it through kernel
-    K6 (``upconv_kernel.upconv_route``), where the architecture allows it.
-    None = on for CUDA tensors, off for CPU tensors; True on a CPU tensor
-    runs the kernels' plain versions (the CPU tests use that to check the
-    wiring); False runs PyTorch ops only."""
+    fused: run the kernel paths that :func:`layer_plan` picks for x's shape
+    and the compute dtype (K3, K2, K4, K6) where the architecture allows
+    them. None = on for CUDA tensors, off for CPU tensors; True on a CPU
+    tensor runs the kernels' plain versions (the CPU tests use that to check
+    the wiring); False runs PyTorch ops only."""
     if dtype is not None:
         x = x.to(dtype)
     if fused is None:
         fused = x.is_cuda
-    use_in = spec.use_instance_norm
-    start = start_at
-    pre_eff, pre_relu = None, False
-    chain = ()
+    plan = layer_plan(spec, tuple(x.shape), x.dtype, fused, start_at, stop_after)
     if spec.input_pad and not start_at:
         x = _pad2d(x, spec.input_pad, "reflect")
-    if fused and not start_at and _front_eligible(spec, x, stop_after):
-        x, st3, cnt = front_layers(
-            x, params["layer00"], spec.layers[0], params["layer00_norm"],
-            params["layer01"], params["layer01_norm"], params["layer02"])
-        if spec.layers[2].norm_after:
-            n2 = params["layer02_norm"]
-            pre_eff = eff_affine(st3, n2["scale"], n2["bias"], cnt)
-        pre_relu = spec.layers[2].relu_after
-        start = 3
-    if stop_after is not None and stop_after < start:
-        return x
-    if fused:
-        chain = _fused_chain_idxs(spec, x)
-        if stop_after is not None and chain and chain[-1] > stop_after:
-            chain = ()
-        if chain and not (x.shape[1] > 4 * len(chain) + 2
-                          and x.shape[2] > 4 * len(chain) + 2):
-            chain = ()  # shrinks 4 px per block: too small for the chain
-    if (pre_eff is not None or pre_relu) and not (chain and chain[0] == start):
-        # layer 2's pending norm/ReLU could not fuse into the chain
-        if pre_eff is not None:
-            x = _affine(x, pre_eff[0], pre_eff[1])
-        if pre_relu:
-            x = torch.relu(x)
-        pre_eff, pre_relu = None, False
-    last = len(spec.layers) - 1
-    folded = -1                       # the conv a K6 launch took with its upsample
-    for i, layer in enumerate(spec.layers):
-        if i < start or i == folded:
-            continue
-        if stop_after is not None and i > stop_after:
-            return x
-        if (i < last and (stop_after is None or stop_after > i)
-                and upconv_kernel.upconv_route(x.dtype, fused, layer, spec.layers[i + 1],
-                                               x.shape[-1])):
-            x = upsample_conv(params, spec, i, x)
-            if i + 1 == last:
-                return x                  # the kernel applied the net's tanh
-            folded = i + 1
-            continue
-        if chain and i in chain:
-            if i == chain[0]:
-                x = fused_res_chain(params, x, chain, pre_eff=pre_eff,
-                                    pre_relu=pre_relu)
-            continue
-        name = f"layer{i:02d}"
-        p = params.get(name)
-        if layer.kind == "conv":
-            if layer.pad_mode:
-                x = _pad2d(x, (layer.ksize - 1) // 2, layer.pad_mode)
-            x = conv2d(x, p["w"], p["b"], layer.stride, layer.pad)
-        elif layer.kind == "full_conv":
-            x = conv_transpose2d(x, p["w"], p["b"], layer.stride, layer.pad,
-                                 layer.out_adjust)
-        elif layer.kind == "upsample":
-            x = upsample_nearest(x, layer.scale)
-        elif layer.kind == "conv_block":
-            x = _block_apply(x, p, layer, use_in, residual=False,
-                             kernel=fused)
-        elif layer.kind == "res_block":
-            x = _block_apply(x, p, layer, use_in, residual=True,
-                             kernel=fused)
-        if layer.norm_after:
-            x = _norm_apply(x, params[name + "_norm"], use_in)
-        if layer.relu_after:
-            x = torch.relu(x)
-    return torch.tanh(x) * spec.tanh_constant
+    pending = None                      # layer 2's (norm affine, ReLU) after K3
+    for path, idxs in plan:
+        if pending and path != "K2":
+            eff, relu = pending
+            if eff is not None:
+                x = _affine(x, eff[0], eff[1])
+            x, pending = (torch.relu(x) if relu else x), None
+        if path == "K3":
+            x, st3, cnt = front_layers(x, params["layer00"], spec.layers[0], params["layer00_norm"],
+                                       params["layer01"], params["layer01_norm"], params["layer02"])
+            eff = None
+            if spec.layers[2].norm_after:
+                n2 = params["layer02_norm"]
+                eff = eff_affine(st3, n2["scale"], n2["bias"], cnt)
+            pending = (eff, spec.layers[2].relu_after)
+        elif path == "K2":
+            x = fused_res_chain(params, x, idxs, *(pending or (None, False)))
+            pending = None
+        elif path == "K6":
+            x = upsample_conv(params, spec, idxs[0], x)
+        elif path == "tanh":
+            x = torch.tanh(x) * spec.tanh_constant
+        else:
+            x = _layer(params, spec, idxs[0], x, _k4_conv if path == "K4" else conv2d)
+    return x
 
 
 def build(arch: str = "canonical", in_channels: int = 7, **kw):

@@ -22,12 +22,10 @@ statistics at low resolution (``models/stylizer.py``) and arrives here as
 ``eff``.
 
 x is (N, H, W, Cin) NHWC float32, weights OIHW; y is (N, 2H, 2W, Cout).
-:func:`upconv_route` names the C entry ``fav_upconv_f32`` for the shapes
-the kernel covers (9x9 with Cin % 4 == 0 and Cout == 3; 3x3 with Cin % 8 ==
-0 and Cout % 32 == 0), float32, under the stylizer's ``fused`` switch. A
-CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-version. Each launch adds one to ``KERNEL.launches`` and to
-``KERNEL.routes[ENTRY]``.
+``fav_upconv_f32`` has instances for the shapes :func:`covers` names; the
+stylizer's ``layer_plan`` picks the layers. A CUDA tensor launches the
+kernel or raises; a CPU tensor runs the plain version. Each launch adds one
+to ``KERNEL.launches`` and to ``KERNEL.routes[ENTRY]``.
 """
 
 from __future__ import annotations
@@ -52,22 +50,6 @@ def covers(k: int, cin: int, cout: int) -> bool:
     layer), 3x3 with Cin % 8 == 0 and Cout % 32 == 0 (layer 9)."""
     return (k == 9 and cin % 4 == 0 and cout == 3) or (k == 3 and cin % 8 == 0
                                                        and cout % 32 == 0)
-
-
-def upconv_route(dtype, fused: bool, up, conv, cin: int):
-    """The C entry that folds upsample layer `up` into the conv layer `conv`
-    after it (``models.arch_dsl.LayerSpec``s) on `cin` channels, or None for
-    the layer-by-layer path: float32 under ``fused``, a nearest upsample of
-    scale 2, then a stride-1 conv with zero padding (k - 1) / 2 of a shape
-    that :func:`covers` names."""
-    if dtype != torch.float32 or not fused:
-        return None
-    if up.kind != "upsample" or up.scale != 2:
-        return None
-    if (conv.kind != "conv" or conv.stride != 1 or conv.pad_mode is not None
-            or conv.ksize % 2 == 0 or conv.pad != (conv.ksize - 1) // 2):
-        return None
-    return ENTRY if covers(conv.ksize, cin, conv.out_channels) else None
 
 
 def fold_window(k: int):

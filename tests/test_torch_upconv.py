@@ -2,8 +2,8 @@
 ``csrc/upconv_f32.cu``), on the CPU: its plain version against the
 layer-by-layer tail it replaces, its folded weights against the JAX
 package's ``_folded_upsample_conv``, the packed layout against the order the
-kernel walks, the route rule, and the stylizer's kernel path against its
-plain path on the canonical net. The kernel's own arithmetic is held
+kernel walks, the layers the stylizer's plan folds, and the stylizer's
+kernel path against its plain path on the canonical net. The kernel's own arithmetic is held
 against the plain version on the card (``tests/test_torch_kernels_gpu.py``).
 """
 
@@ -111,8 +111,18 @@ def test_packed_weights_follow_the_kernels_order(k, q):
     assert (folded.sum(dim=(4, 5)) - w.sum(dim=(2, 3))).abs().max().item() <= 1e-5
 
 
-def _layers(arch, **kw):
-    return arch_dsl.parse_arch(arch, **kw).layers
+# (arch, parse_arch keywords, dtype, fused, the upsample layer the case asks about)
+ROUTE_CASES = {
+    "float32 U2 -> 3x3 128 -> 64": ("canonical", {}, torch.float32, True, 8),
+    "float32 U2 -> 9x9 64 -> 3": ("canonical", {}, torch.float32, True, 10),
+    "bfloat16": ("canonical", {}, torch.bfloat16, True, 8),
+    "fused=False": ("canonical", {}, torch.float32, False, 8),
+    "u64 (learned upsample)": ("train-default", {}, torch.float32, True, 8),
+    "reflect-padded conv": ("canonical", {"padding_type": "reflect"}, torch.float32, True, 8),
+    "U4": ("c9s1-32,d64,d128,R128,U4,c3s1-64,c9s1-3", {}, torch.float32, True, 4),
+    "uncovered widths": ("c9s1-32,d64,d12,U2,c3s1-64,U2,c9s1-3", {}, torch.float32, True, 3),
+    "stride-2 conv": ("c9s1-32,d64,d128,U2,d64,U2,c9s1-3", {}, torch.float32, True, 3),
+}
 
 
 @pytest.mark.parametrize("case,want", [
@@ -127,21 +137,18 @@ def _layers(arch, **kw):
     ("stride-2 conv", None),
 ])
 def test_upconv_route(case, want):
-    c = _layers("canonical")
-    args = {
-        "float32 U2 -> 3x3 128 -> 64": (torch.float32, True, c[8], c[9], 128),
-        "float32 U2 -> 9x9 64 -> 3": (torch.float32, True, c[10], c[11], 64),
-        "bfloat16": (torch.bfloat16, True, c[8], c[9], 128),
-        "fused=False": (torch.float32, False, c[8], c[9], 128),
-        "u64 (learned upsample)": (torch.float32, True, _layers("train-default")[8],
-                                   c[9], 128),
-        "reflect-padded conv": (torch.float32, True, c[8],
-                                _layers("canonical", padding_type="reflect")[9], 128),
-        "U4": (torch.float32, True, _layers("c3s1-8,d16,d32,U4,c3s1-32")[3], c[9], 128),
-        "uncovered widths": (torch.float32, True, c[8], c[9], 12),
-        "stride-2 conv": (torch.float32, True, c[8], c[1], 128),
-    }[case]
-    assert upconv_kernel.upconv_route(*args) == want
+    """Whether ``stylizer.layer_plan`` folds the layer of the case and the
+    conv after it into one K6 launch (``fav_upconv_f32``): only a nearest 2x
+    upsample before a stride-1 zero-padded conv of a covered shape, in
+    float32, under ``fused``; the fold that ends the net carries its tanh,
+    so no "tanh" step follows it."""
+    arch, kw, dtype, fused, up = ROUTE_CASES[case]
+    spec = arch_dsl.parse_arch(arch, **kw)
+    plan = stylizer.layer_plan(spec, (1, 1080, 1920, 7), dtype, fused)
+    got = upconv_kernel.ENTRY if ("K6", (up, up + 1)) in plan else None
+    assert got == want
+    last = len(spec.layers) - 1
+    assert (plan[-1] == ("K6", (last - 1, last))) != (plan[-1] == ("tanh", ()))
 
 
 @pytest.mark.parametrize("n", [1, 2])

@@ -13,9 +13,10 @@ on CUDA events (median of 20) and its device time (torch.profiler, mean of
 (TF32 off; the route the stylizer took before K6) alone and with the
 upsample, norm and ReLU before it, and the bounds by the folded and by the
 unfolded operations. Then stylizer.apply on one 1080p frame and one face,
-with K6 and with its route turned off (the layer-by-layer tail), in turns:
-events, the largest difference of the two outputs, K6's launches per call,
-and the 8 kernels with the most device time. The ptxas report of K6's
+with K6 and with the plan's K6 condition (stylizer.folds_upsample) turned
+off (the layer-by-layer tail), in turns: events, the largest difference of
+the two outputs, K6's launches per call, and the 8 kernels with the most
+device time. The ptxas report of K6's
 instances comes first when this call builds the library.
 """
 
@@ -118,7 +119,7 @@ def main(label: str) -> int:
     spec = arch_dsl.parse_arch("canonical")
     params = stylizer.init_params(torch.Generator(device="cuda").manual_seed(2), spec,
                                   device="cuda")
-    route = upconv_kernel.upconv_route
+    folds = stylizer.folds_upsample
     for name, hw in (("1080p", (1080, 1920)), ("face", (924, 924))):
         x = (torch.randn(1, *hw, 7, generator=g) * 60).cuda()
 
@@ -127,11 +128,11 @@ def main(label: str) -> int:
                 return stylizer.apply(params, spec, x)
 
         def layerwise():
-            upconv_kernel.upconv_route = lambda *a: None
+            stylizer.folds_upsample = lambda *a: False
             try:
                 return fused()
             finally:
-                upconv_kernel.upconv_route = route
+                stylizer.folds_upsample = folds
         before = k6.launches
         a = fused()
         launches = k6.launches - before
